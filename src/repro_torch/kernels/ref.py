@@ -1,0 +1,41 @@
+"""Plain PyTorch versions of the attention kernels (the counterparts of
+``repro/kernels/ref.py``). ``kernels.ops`` runs these for CPU tensors, and
+the chip smoke test holds each CUDA kernel against them on the card."""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = torch.finfo(torch.float32).min
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int | None = None):
+    """q [B, S, H, D]; k, v [B, S, Hkv, D] -> [B, S, H, D] (f32 math)."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    qg = q.reshape(B, S, Hkv, g, D).to(torch.float32)
+    logits = torch.einsum("bshgd,bthd->bhgst", qg, k.to(torch.float32)) / (D ** 0.5)
+    idx = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = idx[None, :] <= idx[:, None]
+    if window is not None:
+        mask = mask & (idx[None, :] > idx[:, None] - window)
+    logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v.to(torch.float32))
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, valid_mask):
+    """q [B, 1, H, D]; k, v [B, C, Hkv, D]; valid_mask [B, C] -> [B, 1, H, D]."""
+    B, _, H, D = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    qg = q.reshape(B, 1, Hkv, g, D).to(torch.float32)
+    logits = torch.einsum("bshgd,bthd->bhgst", qg, k.to(torch.float32)) / (D ** 0.5)
+    mask = valid_mask[:, None, None, None, :]
+    logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v.to(torch.float32))
+    return out.reshape(B, 1, H, D).to(q.dtype)

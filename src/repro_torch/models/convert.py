@@ -1,0 +1,70 @@
+"""Carry the reference's weights and caches across (no JAX counterpart).
+
+The reference's parameter pytree arrives as nested dicts of NumPy arrays,
+what ``jax.tree.map(np.asarray, params)`` gives; this module never imports
+jax. Layer leaves are stacked on a leading [L, ...] axis there and are
+unstacked into the port's ``layers`` ModuleList here. Linear weights keep
+the reference's [in, out] layout, so no leaf is transposed.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _as_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes: widen exactly, then narrow
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))    # a writable copy: JAX's views are read-only
+
+
+def _load(module: nn.Module, tree: dict, prefix: str, loaded: set):
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            child = getattr(module, key)
+            if isinstance(child, nn.ModuleList):
+                for i, sub in enumerate(child):
+                    _load(sub, {k: _index(v, i) for k, v in val.items()},
+                          f"{name}.{i}.", loaded)
+            else:
+                _load(child, val, f"{name}.", loaded)
+            continue
+        param = getattr(module, key, None)
+        if not isinstance(param, torch.Tensor):
+            raise KeyError(f"reference leaf {name!r} has no parameter in the port")
+        src = _as_tensor(val)
+        if tuple(src.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: reference shape {tuple(src.shape)} != "
+                             f"port shape {tuple(param.shape)}")
+        with torch.no_grad():
+            param.copy_(src)
+        loaded.add(name)
+
+
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
+    """Fill ``model``'s parameters in place from the reference pytree
+    ``params`` (nested dicts of NumPy arrays). Every parameter of the model
+    must be covered and every leaf must land; returns ``model``."""
+    loaded: set[str] = set()
+    _load(model, params, "", loaded)
+    missing = {n for n, _ in model.named_parameters()} - loaded
+    if missing:
+        raise KeyError(f"parameters not in the reference pytree: {sorted(missing)}")
+    return model
+
+
+def cache_from_numpy(cache: dict, *, device="cpu") -> dict:
+    """Reference KV cache (``k``, ``v`` [L, B, C, kv, hd], ``pos`` [B]) as
+    NumPy arrays -> the port's cache dict of tensors on ``device``."""
+    return {"k": _as_tensor(cache["k"]).to(device),
+            "v": _as_tensor(cache["v"]).to(device),
+            "pos": torch.from_numpy(np.array(cache["pos"], dtype=np.int32)).to(device)}

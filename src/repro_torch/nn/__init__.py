@@ -1,0 +1,12 @@
+"""Neural-net layers of the port. Each layer is an ``nn.Module`` that holds
+the parameters under the reference's pytree names, plus a function of the
+reference's name that applies it:
+    Linear / linear, Embedding / embedding, RMSNorm / rmsnorm, ...
+"""
+from repro_torch.nn.linear import Linear, linear, Embedding, embedding
+from repro_torch.nn.norms import RMSNorm, rmsnorm, LayerNorm, layernorm
+from repro_torch.nn.rope import rope_frequencies, apply_rope
+from repro_torch.nn.mlp import MLP, mlp
+from repro_torch.nn.attention import (
+    Attention, attention_prefill, attention_decode, make_kv_cache,
+)

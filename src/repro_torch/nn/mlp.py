@@ -1,0 +1,39 @@
+"""Feed-forward blocks: SwiGLU (llama-style) and GELU (whisper/gpt-style).
+
+The GELU is the tanh approximation, as ``jax.nn.gelu``'s default; torch's
+default exact GELU would not match the reference."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.nn.linear import Linear, linear
+
+
+class MLP(nn.Module):
+    def __init__(self, dim: int, hidden: int, *, kind: str = "swiglu",
+                 dtype=torch.float32, device="cpu",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.kind = kind
+        if kind == "swiglu":
+            self.wg = Linear(dim, hidden, **kw)
+            self.wu = Linear(dim, hidden, **kw)
+            self.wd = Linear(hidden, dim, **kw)
+        else:
+            self.w1 = Linear(dim, hidden, bias=True, **kw)
+            self.w2 = Linear(hidden, dim, bias=True, **kw)
+
+    def forward(self, x):
+        return mlp(self, x, kind=self.kind)
+
+
+def mlp(params: MLP, x, *, kind: str = "swiglu"):
+    if kind == "swiglu":
+        g = linear(params.wg, x)
+        u = linear(params.wu, x)
+        return linear(params.wd, F.silu(g) * u)
+    h = F.gelu(linear(params.w1, x), approximate="tanh")
+    return linear(params.w2, h)
