@@ -7,9 +7,11 @@ drives the port's main paths at full width.
 Phases (any failure exits non-zero):
   env      nvidia-smi name and power limit, torch/CUDA versions, kernel build
   kernels  each kernel vs its plain version on the card (the reference test
-           shapes, the windows, ragged and no-valid-slot masks, the slice's
-           own shapes; f32 at 2e-3, bf16 at 4e-2), with kernel, plain,
-           library (SDPA) and roofline-bound times
+           shapes, the windows, ragged and no-valid-slot masks, the decode
+           kernel's split and tile-skipping masks and a cache of C = 1000,
+           the slice's own shapes; f32 at 2e-3, bf16 at 4e-2), with kernel,
+           plain, library (SDPA) and roofline-bound times; each decode case
+           names its n_splits
   serve    a PipelineServer with one StageServer whose variants are
            llama3.2-1b and starcoder2-3b at full width: requests, a variant
            switch, more requests; launch counts; logits against the plain
@@ -46,9 +48,21 @@ LOGIT_TOL = 5e-3
 FA_SHAPES = [(1, 128, 4, 2, 64), (2, 256, 8, 8, 64), (1, 256, 6, 2, 128),
              (2, 128, 4, 1, 80)]                # (B, S, H, Hkv, D)
 DEC_SHAPES = [(2, 8, 2, 64, 1024, 700), (1, 24, 8, 128, 2048, 2048),
-              (4, 4, 4, 64, 512, 100), (2, 32, 8, 128, 1024, 1)]  # (B, H, Hkv, D, C, nv)
+              (4, 4, 4, 64, 512, 100), (2, 32, 8, 128, 1024, 1),
+              (2, 16, 2, 80, 1024, 513), (1, 12, 1, 80, 300, 250),
+              (1, 16, 1, 64, 256, 200), (1, 8, 8, 128, 32768, 20000)]  # (B, H, Hkv, D, C, nv)
+# masks that exercise the decode kernel's split and tile skipping, at
+# DEC_MASK_SHAPE and at a cache that is no multiple of the chunk (C = 1000)
+DEC_MASKS = ("whole_split_false", "holes", "no_valid_slot", "last_split_only",
+             "single_slot")
+DEC_MASK_SHAPE = (2, 8, 2, 64, 1024)            # (B, H, Hkv, D, C)
+DEC_RAGGED_SHAPE = (2, 8, 2, 64, 1000)
 SLICE_FA = [(4, 32, 32, 8, 64), (4, 32, 24, 2, 128)]   # llama3.2-1b, starcoder2-3b
 SLICE_DEC = (4, 32, 8, 64, 1024, 32)            # llama3.2-1b decode, last step
+# further timed decode shapes: llama3.2-1b with a full cache, starcoder2-3b
+# with 32 and with 1024 valid slots
+TIMED_DEC = [(4, 32, 8, 64, 1024, 1024), (4, 24, 2, 128, 1024, 32),
+             (4, 24, 2, 128, 1024, 1024)]
 SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:111"),
            "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -144,21 +158,51 @@ def flash_case(timer, gen, shape, dtype, window=None, timed=False, causal=True):
     return row, ok
 
 
-def decode_case(timer, gen, B, H, Hkv, D, C, n_valid, dtype, timed=False):
+def plan_mask(name, B, C, n_splits, chunk, gen):
+    """A [B, C] bool mask on the card, named as in DEC_MASKS, laid out
+    against the decode kernel's plan (n_splits chunks of `chunk` slots)."""
+    from repro_torch.kernels import decode_attention as da
+    m = torch.zeros(B, C, dtype=torch.bool, device="cuda")
+    if name == "whole_split_false":            # row 0: split 1 all false
+        m[0, :chunk] = True
+        m[0, 2 * chunk:] = True
+        m[1:, : C // 2] = True
+    elif name == "holes":                      # non-prefix, whole tiles masked
+        m = torch.rand(B, C, generator=gen, device="cuda") < 0.3
+        m[:, 5 * da.TILE: 9 * da.TILE] = False
+    elif name == "no_valid_slot":              # row 0 has none
+        m[1:, :100] = True
+    elif name == "last_split_only":
+        m[:, (n_splits - 1) * chunk + 3:] = True
+    elif name == "single_slot":
+        idx = torch.randint(0, C, (B,), generator=gen, device="cuda")
+        m[torch.arange(B, device="cuda"), idx] = True
+    else:
+        raise ValueError(name)
+    return m
+
+
+def decode_case(timer, gen, B, H, Hkv, D, C, n_valid, dtype, timed=False, mask=None):
+    """Mask: the first n_valid slots of each row, or the DEC_MASKS pattern
+    named by `mask`."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
     q = randn(gen, (B, 1, H, D), dtype)
     k, v = (randn(gen, (B, C, Hkv, D), dtype) for _ in range(2))
-    nv = torch.as_tensor(n_valid, device="cuda").reshape(-1, 1)
-    mask = torch.arange(C, device="cuda")[None, :] < nv
-    mask = mask.expand(B, C).contiguous()
+    n_splits, chunk = da.plan_splits(B, Hkv, C, da.sm_count(torch.cuda.current_device()),
+                                     da.row_groups(H, Hkv))
+    if mask is not None:
+        mask = plan_mask(mask, B, C, n_splits, chunk, gen)
+    else:
+        nv = torch.as_tensor(n_valid, device="cuda").reshape(-1, 1)
+        mask = (torch.arange(C, device="cuda")[None, :] < nv).expand(B, C).contiguous()
     out = da.decode_attention(q, k, v, mask)
     want = ref.decode_attention_ref(q, k, v, mask)
     torch.cuda.synchronize()
     err = (out.float() - want.float()).abs().max().item()
     row = {"kernel": "decode_attention", "shape": [B, H, Hkv, D, C],
-           "n_valid": np.broadcast_to(np.asarray(n_valid), (B,)).tolist(),
-           "dtype": str(dtype)[6:], "max_abs_err": err}
+           "n_valid": mask.sum(1).tolist(), "dtype": str(dtype)[6:],
+           "n_splits": n_splits, "chunk": chunk, "max_abs_err": err}
     ok = err < TOL[dtype] and bool(torch.isfinite(out.float()).all())
     if timed:
         slots = int(mask.sum().item())
@@ -186,6 +230,13 @@ def phase_kernels(timer) -> dict[str, dict]:
         for shape in SLICE_FA:
             rows.append(flash_case(timer, gen, shape, dtype, timed=True))
         rows.append(decode_case(timer, gen, *SLICE_DEC, dtype, timed=True))
+        for shape in TIMED_DEC:
+            rows.append(decode_case(timer, gen, *shape, dtype, timed=True))
+        for name in DEC_MASKS:
+            rows.append(decode_case(timer, gen, *DEC_MASK_SHAPE, None, dtype, mask=name))
+        for name in ("holes", "single_slot"):
+            rows.append(decode_case(timer, gen, *DEC_RAGGED_SHAPE, None, dtype, mask=name))
+        rows.append(decode_case(timer, gen, *DEC_RAGGED_SHAPE, 999, dtype))
     for window in (32, 64, 128):
         rows.append(flash_case(timer, gen, (1, 256, 4, 2, 64), torch.float32, window,
                                timed=True))
@@ -197,7 +248,8 @@ def phase_kernels(timer) -> dict[str, dict]:
         if not ok:
             bad.append(row)
     check(not bad, f"{len(bad)} kernel case(s) disagree with the plain version")
-    # each kernel's summary entry: its first timed f32 case, the llama3.2-1b shape
+    # each kernel's summary entry: its first timed f32 case, the llama3.2-1b
+    # shape (for decode, SLICE_DEC)
     for row, _ in rows:
         if "ms" in row and row["dtype"] == "float32":
             summary.setdefault(row["kernel"], row)

@@ -7,6 +7,16 @@ it checks them, allocates the output, launches on the current stream without
 synchronising and counts the launch in ``launches``. The plain version is
 ``kernels.ref.decode_attention_ref``; ``kernels.ops`` picks between the two
 by tensor device.
+
+The kernel splits the cache across CTAs (flash-decoding). A CTA serves up
+to 4 query heads of one kv head (``row_groups`` CTAs per kv head), and
+``plan_splits`` cuts the C slots into ``n_splits <= 8`` chunks, aiming at
+two CTAs per SM: the grid is (B * Hkv * row_groups, n_splits), one
+thread-block cluster of n_splits CTAs per (b, kv head, row group). Each CTA
+keeps its partial softmax state (m, l, acc) in f32 in its own shared
+memory, and the cluster merges the partials through distributed shared
+memory in the same launch: no scratch tensor and no counters in device
+memory.
 """
 from __future__ import annotations
 
@@ -19,18 +29,59 @@ from repro_torch.kernels import build
 
 launches = 0            # incremented once per successful kernel launch
 
-MAX_GROUP_DIM = 2048    # g * D the kernel holds in registers (256 threads x 8)
+MAX_GROUP = 16          # query heads per kv head
+HEAD_DIMS = (64, 80, 128)   # the kernel's template instances
+TILE = 32               # slots per K/V tile, one per lane of a warp
+ROWS_PER_CTA = 4        # query heads per CTA, one per warp
+CTAS_PER_SM = 2         # what plan_splits aims at, within MAX_SPLITS
+MAX_SPLITS = 8          # CTAs in one cluster (the portable limit)
+MAX_CHUNK = 16384       # slots per split
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_splits(B: int, Hkv: int, C: int, sm_count: int,
+                row_groups: int = 1) -> tuple[int, int]:
+    """Split C slots into chunks for B * Hkv (b, kv head) pairs, each served
+    by ``row_groups`` CTAs of up to 4 query heads, on a card with
+    ``sm_count`` SMs -> (n_splits, chunk).
+
+    Aims at ``CTAS_PER_SM`` CTAs per SM with at most ``MAX_SPLITS`` splits:
+    the chunk is a whole number of tiles. Chunk i covers
+    [i * chunk, min(C, (i + 1) * chunk)); every chunk is non-empty and the
+    last may be short."""
+    if min(B, Hkv, C, sm_count, row_groups) < 1:
+        raise ValueError(f"plan_splits({B}, {Hkv}, {C}, {sm_count}, {row_groups}): "
+                         "all must be >= 1")
+    want = min(_cdiv(CTAS_PER_SM * sm_count, B * Hkv * row_groups), MAX_SPLITS)
+    chunk = _cdiv(_cdiv(C, want), TILE) * TILE
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"cache of {C} slots exceeds {MAX_SPLITS} x {MAX_CHUNK}")
+    n_splits = _cdiv(C, chunk)
+    return n_splits, (C if n_splits == 1 else chunk)
+
+
+def row_groups(H: int, Hkv: int) -> int:
+    """CTAs per (b, kv head): one warp per query head, 4 warps per CTA."""
+    return _cdiv(H // Hkv, ROWS_PER_CTA)
 
 
 @functools.cache
 def _lib():
     lib = build.load("decode_attention")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.decode_attention_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
+    lib.decode_attention_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, P]
     lib.decode_attention_fwd.restype = I
     return lib
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_inputs(q, k, v, valid_mask):
@@ -55,10 +106,14 @@ def _check_inputs(q, k, v, valid_mask):
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if tuple(valid_mask.shape) != (B, C):
         raise ValueError(f"valid_mask {tuple(valid_mask.shape)} is not [B, C] = {(B, C)}")
-    if (H // Hkv) * D > MAX_GROUP_DIM:
-        raise ValueError(f"group {H // Hkv} x head_dim {D} exceeds {MAX_GROUP_DIM}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} is not one of the kernel's {HEAD_DIMS}")
+    if H // Hkv > MAX_GROUP:
+        raise ValueError(f"group of {H // Hkv} query heads per kv head exceeds {MAX_GROUP}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("decode_attention kernel needs contiguous inputs")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("decode_attention kernel needs 16-byte aligned q, k and v")
     return B, C, H, Hkv, D
 
 
@@ -67,12 +122,13 @@ def decode_attention(q, k, v, valid_mask):
     -> [B, 1, H, D]."""
     global launches
     B, C, H, Hkv, D = _check_inputs(q, k, v, valid_mask)
+    n_splits, chunk = plan_splits(B, Hkv, C, sm_count(q.device.index), row_groups(H, Hkv))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib().decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_mask.data_ptr(),
-            out.data_ptr(), B, C, H, Hkv, D, _DTYPE_CODES[q.dtype], stream)
+            out.data_ptr(), B, C, H, Hkv, D, _DTYPE_CODES[q.dtype], n_splits, chunk, stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
     launches += 1

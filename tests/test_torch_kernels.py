@@ -179,3 +179,136 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc_path()
+
+
+# --- the split-C decode kernel's plan and algorithm, on the CPU ------------
+
+SM_COUNT = 132      # an H100's SMs; the planner's other input
+
+
+@pytest.mark.parametrize("B,Hkv,C,sm,rg", [
+    (4, 8, 1024, 132, 1), (4, 2, 1024, 132, 3), (4, 8, 1000, 132, 1), (1, 1, 1, 132, 1),
+    (2, 2, 31, 132, 2), (64, 8, 1024, 132, 1), (1, 8, 32768, 132, 2),
+    (1, 1, 1 << 17, 132, 4), (3, 4, 777, 16, 1)])
+def test_plan_splits_covers_cache_once(B, Hkv, C, sm, rg):
+    n, chunk = tda.plan_splits(B, Hkv, C, sm, rg)
+    starts = [i * chunk for i in range(n)]
+    ends = [min(C, s + chunk) for s in starts]
+    assert all(e > s for s, e in zip(starts, ends, strict=True))     # no empty split
+    assert starts[0] == 0 and ends[-1] == C
+    assert all(e == s for e, s in zip(ends[:-1], starts[1:], strict=True))
+    assert 1 <= n <= tda.MAX_SPLITS and chunk <= tda.MAX_CHUNK
+    assert n == 1 or chunk % tda.TILE == 0
+    # as many CTAs as the aim asks, unless the cluster or the tiles run out
+    assert (B * Hkv * rg * n >= tda.CTAS_PER_SM * sm or n == tda.MAX_SPLITS
+            or chunk == tda.TILE or n == _cdiv(C, chunk))
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def test_plan_splits_main_path_shapes():
+    """llama3.2-1b (B4 Hkv8, g 4: one CTA per kv head) and starcoder2-3b (B4
+    Hkv2, g 12: three) at C=1024 on 132 SMs: the cluster's 8 splits, chunks
+    of whole tiles; a large batch needs no split."""
+    assert [tda.row_groups(H, Hkv) for H, Hkv in ((32, 8), (24, 2), (8, 8), (40, 8))] == [
+        1, 3, 1, 2]
+    assert tda.plan_splits(4, 8, 1024, SM_COUNT) == (8, 128)
+    assert tda.plan_splits(4, 2, 1024, SM_COUNT, tda.row_groups(24, 2)) == (8, 128)
+    assert tda.plan_splits(64, 8, 1024, SM_COUNT) == (1, 1024)
+    with pytest.raises(ValueError):
+        tda.plan_splits(1, 1, tda.MAX_SPLITS * tda.MAX_CHUNK + 1, SM_COUNT)
+
+
+def split_decode_model(q, k, v, mask, n_splits, chunk, tile=tda.TILE):
+    """The CUDA kernel's algorithm in plain f32 torch: per split, the online
+    softmax over its tiles, skipping a tile whose mask is all false when the
+    row has a valid slot; each split's partial (m, l, acc), m = -inf for a
+    split without a kept tile; then the merge."""
+    B, _, H, D = q.shape
+    C, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qg = q.reshape(B, Hkv, g, D).float() * (1.0 / D ** 0.5)
+    kf, vf = k.float(), v.float()
+    out = torch.zeros(B, Hkv, g, D)
+    neg = torch.finfo(torch.float32).min
+    for b in range(B):
+        row_any = bool(mask[b].any())
+        for h in range(Hkv):
+            ms, ls, accs = [], [], []
+            for s in range(n_splits):
+                m = torch.full((g,), -torch.inf)
+                l, acc = torch.zeros(g), torch.zeros(g, D)
+                for t0 in range(s * chunk, min(C, (s + 1) * chunk), tile):
+                    t1 = min(C, (s + 1) * chunk, t0 + tile)
+                    keep = mask[b, t0:t1]
+                    if row_any and not bool(keep.any()):
+                        continue
+                    x = torch.where(keep, qg[b, h] @ kf[b, t0:t1, h].T, neg)
+                    m_new = torch.maximum(m, x.max(-1).values)
+                    p = torch.exp(x - m_new[:, None])
+                    alpha = torch.exp(m - m_new)
+                    l = alpha * l + p.sum(-1)
+                    acc = acc * alpha[:, None] + p @ vf[b, t0:t1, h]
+                    m = m_new
+                ms.append(m), ls.append(l), accs.append(acc)
+            m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+            w = torch.where(m == -torch.inf, 0.0, torch.exp(m - m.max(0).values))
+            den = (w * l).sum(0)
+            den = torch.where(den == 0, 1.0, den)
+            out[b, h] = (w[:, :, None] * acc).sum(0) / den[:, None]
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def plan_masks(B, C, n_splits, chunk, rng):
+    """Masks that exercise the kernel's split and tile skipping, by name."""
+    last = (n_splits - 1) * chunk
+    whole = np.zeros((B, C), bool)               # row 0: split 1 all false
+    whole[0, :chunk] = True
+    whole[0, 2 * chunk:] = True
+    whole[1:, : C // 2] = True
+    holes = rng.random((B, C)) < 0.3              # non-prefix, with holes
+    holes[:, 5 * tda.TILE: 9 * tda.TILE] = False  # whole tiles masked
+    none = np.zeros((B, C), bool)                 # row 0 has no valid slot
+    none[1:, :100] = True
+    tail = np.zeros((B, C), bool)                 # valid slots in the last split only
+    tail[:, last + 3:] = True
+    single = np.zeros((B, C), bool)               # one valid slot per row
+    single[np.arange(B), rng.integers(0, C, B)] = True
+    return {"whole_split_false": whole, "holes": holes, "no_valid_slot": none,
+            "last_split_only": tail, "single_slot": single}
+
+
+MASK_NAMES = ["whole_split_false", "holes", "no_valid_slot", "last_split_only",
+              "single_slot"]
+
+
+@pytest.mark.parametrize("name", MASK_NAMES)
+def test_split_decode_model_matches_pallas_interpret(name):
+    B, H, Hkv, D, C = 2, 8, 2, 64, 512
+    n, chunk = tda.plan_splits(B, Hkv, C, SM_COUNT)
+    assert n > 2
+    (jq, jk, jv), (q, k, v) = inputs(9, [(B, 1, H, D), (B, C, Hkv, D), (B, C, Hkv, D)])
+    m = plan_masks(B, C, n, chunk, np.random.default_rng(10))[name]
+    got = split_decode_model(q, k, v, torch.from_numpy(m), n, chunk)
+    want = jops.decode_attention(jq, jk, jv, jnp.asarray(m))
+    assert max_err(got, want) < 2e-3
+    if name == "no_valid_slot":
+        mean_v = v[0].mean(dim=0).repeat_interleave(H // Hkv, dim=0)
+        assert float((got[0, 0] - mean_v).abs().max()) < REF_TOL
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_decode_model_ragged_cache_matches_reference_oracle(dtype):
+    """C = 1000 is no multiple of the chunk (nor of the Pallas kernel's
+    512-slot block): held against the reference oracle."""
+    B, H, Hkv, D, C = 2, 8, 2, 64, 1000
+    n, chunk = tda.plan_splits(B, Hkv, C, SM_COUNT)
+    assert C % chunk
+    (jq, jk, jv), (q, k, v) = inputs(11, [(B, 1, H, D), (B, C, Hkv, D), (B, C, Hkv, D)],
+                                     dtype)
+    m = plan_masks(B, C, n, chunk, np.random.default_rng(12))["holes"]
+    got = split_decode_model(q, k, v, torch.from_numpy(m), n, chunk)
+    want = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(m))
+    assert max_err(got, want) < DTYPES[dtype][2]
