@@ -6,12 +6,18 @@ drives the port's main paths at full width.
 
 Phases (any failure exits non-zero):
   env      nvidia-smi name and power limit, torch/CUDA versions, kernel build
+           (ptxas registers and spills per instance), the HGMMA/HMMA counts
+           of each flash instance from cuobjdump -sass (a bf16 instance
+           without HGMMA fails)
   kernels  each kernel vs its plain version on the card (the reference test
-           shapes, the windows, ragged and no-valid-slot masks, the decode
-           kernel's split and tile-skipping masks and a cache of C = 1000,
-           the slice's own shapes; f32 at 2e-3, bf16 at 4e-2), with kernel,
-           plain, library (SDPA) and roofline-bound times; each decode case
-           names its n_splits
+           shapes, windows and non-causal flash in both dtypes, flash at S
+           off the packed tiles' grid and D = 80, the decode kernel's ragged,
+           no-valid-slot, split and tile-skipping masks and a cache of
+           C = 1000, the slice's own shapes, flash at S = 2048; f32 at 2e-3,
+           bf16 at 4e-2), with kernel, plain, library (SDPA) and
+           roofline-bound times, achieved TFLOP/s and the share of the bound;
+           timed flash rows also time one and two consumer warpgroups per
+           CTA and name the tile plan; each decode case names its n_splits
   serve    a PipelineServer with one StageServer whose variants are
            llama3.2-1b and starcoder2-3b at full width: requests, a variant
            switch, more requests; launch counts; logits against the plain
@@ -27,6 +33,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -36,7 +44,9 @@ import torch
 import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
-PEAK_OPS = {torch.float32: 67e12,               # f32 outside the tensor cores
+# Peak rate of f32-accurate products: 3xTF32 on the tensor cores (three TF32
+# products at 495 TFLOP/s), above the 67 TFLOP/s of f32 FMA outside them.
+PEAK_OPS = {torch.float32: 495e12 / 3,
             torch.bfloat16: 989e12}             # bf16 dense tensor cores
 TOL = {torch.float32: 2e-3, torch.bfloat16: 4e-2}    # tests/test_kernels.py
 # Full-width logits compared across two attention paths in f32 (TF32 off):
@@ -58,15 +68,61 @@ DEC_MASKS = ("whole_split_false", "holes", "no_valid_slot", "last_split_only",
 DEC_MASK_SHAPE = (2, 8, 2, 64, 1024)            # (B, H, Hkv, D, C)
 DEC_RAGGED_SHAPE = (2, 8, 2, 64, 1000)
 SLICE_FA = [(4, 32, 32, 8, 64), (4, 32, 24, 2, 128)]   # llama3.2-1b, starcoder2-3b
+# the same two models at a prefill length, where the products bound the call
+PREFILL_FA = [(1, 2048, 32, 8, 64), (1, 2048, 24, 2, 128)]
+# flash cases off the packed tiles' grid: S no multiple of P (16, 5, 21, 4
+# positions for g = 4, 12, 3, 16) nor of the kv tile, S below one tile and
+# S = 1, D = 80 padded
+RAGGED_FA = [(2, 33, 32, 8, 64), (1, 101, 24, 2, 128), (1, 100, 8, 2, 80),
+             (1, 77, 6, 2, 128), (2, 65, 16, 1, 64), (3, 7, 8, 2, 64), (1, 1, 24, 2, 128)]
 SLICE_DEC = (4, 32, 8, 64, 1024, 32)            # llama3.2-1b decode, last step
 # further timed decode shapes: llama3.2-1b with a full cache, starcoder2-3b
 # with 32 and with 1024 valid slots
 TIMED_DEC = [(4, 32, 8, 64, 1024, 1024), (4, 24, 2, 128, 1024, 32),
              (4, 24, 2, 128, 1024, 1024)]
+SASS_OPS = ("HGMMA", "HMMA")
 SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:111"),
            "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                 "src/repro/kernels/decode_attention.py:91")}
+
+
+def instance_name(mangled: str) -> str:
+    """flash_fwd_kernel<bf16, 128, 2, 128> from its mangled name (dtype,
+    padded head_dim, consumer warpgroups, kv rows per tile); other names
+    unchanged."""
+    m = re.search(r"flash_fwd_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d)ELi(\d+)E", mangled)
+    if not m:
+        return mangled
+    dtype = "bf16" if m.group(1).endswith("bfloat16") else "f32"
+    return f"flash_fwd_kernel<{dtype}, {m.group(2)}, {m.group(3)}, {m.group(4)}>"
+
+
+def sass_check():
+    """Count the tensor-core instructions of each flash kernel instance in
+    the built library: HGMMA is wgmma, HMMA mma.sync. A bf16 instance
+    without HGMMA fails."""
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("sass: no cuobjdump in the toolkit: HGMMA/HMMA not checked", flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = instance_name(line.split("Function : ")[1].strip())
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name is not None:
+            for op in SASS_OPS:
+                counts[name][op] += len(re.findall(rf"\b{op}\.", line))
+    bf16 = [n for n in counts if "<bf16" in n]
+    for n, c in sorted(counts.items()):
+        print(f"sass {n}: " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS), flush=True)
+    check(bool(bf16), "no bf16 flash kernel instance in the built library")
+    check(all(counts[n]["HGMMA"] > 0 for n in bf16), "a bf16 flash instance has no HGMMA")
 
 
 def fail(msg: str):
@@ -149,12 +205,19 @@ def flash_case(timer, gen, shape, dtype, window=None, timed=False, causal=True):
         nbytes = elt * (2 * B * S * H * D + 2 * B * S * Hkv * D)
         b_ms, b_by = bound_ms(nbytes, 4.0 * B * H * D * pairs, dtype)
         lib_kw = ({"is_causal": True} if window is None else {"attn_mask": keep})
+        plan = fa.plan_tiles(B, S, H, Hkv, D, bf16=dtype == torch.bfloat16,
+                             sm_count=fa.sm_count(q.device.index))
+        # the planner's choice, then one and two consumer warpgroups per CTA
         row.update(
             ms=timer.ms(lambda: fa.flash_attention(q, k, v, causal=True, window=window)),
+            **{f"ms_wg{w}": timer.ms(lambda w=w: fa.flash_attention(
+                q, k, v, causal=True, window=window, warpgroups=w)) for w in (1, 2)},
             plain_ms=timer.ms(lambda: ref.flash_attention_ref(q, k, v, causal=True,
                                                               window=window)),
             library_ms=timer.ms(lambda: sdpa(q, k, v, **lib_kw)),
-            bound_ms=b_ms, bound_by=b_by)
+            bound_ms=b_ms, bound_by=b_by, plan=list(plan[:4]))
+        row.update(tflops=4.0 * B * H * D * pairs / row["ms"] / 1e9,
+                   share_of_bound=b_ms / row["ms"])
     return row, ok
 
 
@@ -214,6 +277,8 @@ def decode_case(timer, gen, B, H, Hkv, D, C, n_valid, dtype, timed=False, mask=N
             plain_ms=timer.ms(lambda: ref.decode_attention_ref(q, k, v, mask)),
             library_ms=timer.ms(lambda: sdpa(q, k, v, attn_mask=mask[:, None, None, :])),
             bound_ms=b_ms, bound_by=b_by)
+        row.update(tflops=4.0 * H * D * slots / row["ms"] / 1e9,
+                   share_of_bound=b_ms / row["ms"])
     return row, ok
 
 
@@ -227,8 +292,14 @@ def phase_kernels(timer) -> dict[str, dict]:
             rows.append(flash_case(timer, gen, shape, dtype))
         for B, H, Hkv, D, C, nv in DEC_SHAPES:
             rows.append(decode_case(timer, gen, B, H, Hkv, D, C, nv, dtype))
-        for shape in SLICE_FA:
+        for shape in SLICE_FA + PREFILL_FA:
             rows.append(flash_case(timer, gen, shape, dtype, timed=True))
+        for shape in RAGGED_FA:
+            rows.append(flash_case(timer, gen, shape, dtype))
+        for window in (32, 64, 128):
+            rows.append(flash_case(timer, gen, (1, 256, 4, 2, 64), dtype, window,
+                                   timed=dtype == torch.float32))
+        rows.append(flash_case(timer, gen, (1, 128, 4, 2, 64), dtype, causal=False))
         rows.append(decode_case(timer, gen, *SLICE_DEC, dtype, timed=True))
         for shape in TIMED_DEC:
             rows.append(decode_case(timer, gen, *shape, dtype, timed=True))
@@ -237,10 +308,6 @@ def phase_kernels(timer) -> dict[str, dict]:
         for name in ("holes", "single_slot"):
             rows.append(decode_case(timer, gen, *DEC_RAGGED_SHAPE, None, dtype, mask=name))
         rows.append(decode_case(timer, gen, *DEC_RAGGED_SHAPE, 999, dtype))
-    for window in (32, 64, 128):
-        rows.append(flash_case(timer, gen, (1, 256, 4, 2, 64), torch.float32, window,
-                               timed=True))
-    rows.append(flash_case(timer, gen, (1, 128, 4, 2, 64), torch.float32, causal=False))
     rows.append(decode_case(timer, gen, 3, 8, 4, 64, 512, [37, 512, 256], torch.float32))
     rows.append(decode_case(timer, gen, 2, 8, 2, 64, 256, [0, 100], torch.float32))
     for row, ok in rows:
@@ -388,8 +455,11 @@ def main():
     print(f"env: built {list(build.KERNELS)} in {time.perf_counter() - t0:.1f}s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                print(f"ptxas {name}: {instance_name(line.split(chr(39))[1])}", flush=True)
+            elif "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    sass_check()
 
     summary = phase_kernels(Timer())
     serve_counts, stage = phase_serve()

@@ -312,3 +312,226 @@ def test_split_decode_model_ragged_cache_matches_reference_oracle(dtype):
     got = split_decode_model(q, k, v, torch.from_numpy(m), n, chunk)
     want = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(m))
     assert max_err(got, want) < DTYPES[dtype][2]
+
+
+# --- the packed-tile flash kernel's plan and algorithm, on the CPU ----------
+
+# chip_smoke.py's FA_SHAPES: the reference test shapes (B, S, H, Hkv, D)
+FA_SHAPES = [(1, 128, 4, 2, 64), (2, 256, 8, 8, 64), (1, 256, 6, 2, 128), (2, 128, 4, 1, 80)]
+# the main path's shapes: llama3.2-1b and starcoder2-3b at the serving length
+# and at a prefill length, and group sizes off the power-of-two grid
+PLAN_SHAPES = [(4, 32, 32, 8, 64), (4, 32, 24, 2, 128), (1, 2048, 32, 8, 64),
+               (1, 2048, 24, 2, 128), (2, 33, 6, 2, 128), (1, 100, 16, 1, 64),
+               (3, 1, 4, 4, 80), (1, 65, 8, 8, 64)]
+
+
+def packed_rows(plan, S, g):
+    """(tile, warpgroup, row) -> (position, head in the group) for every row
+    the kernel stores: rows past P*g and positions past S are not stored."""
+    P, nwg, n_tiles = plan[:3]
+    for t in range(n_tiles):
+        for w in range(nwg):
+            for r in range(P * g):
+                pos = t * nwg * P + w * P + r // g
+                if pos < S:
+                    yield t, w, r, pos, r % g
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D", PLAN_SHAPES)
+def test_plan_tiles_covers_every_row_once(B, S, H, Hkv, D):
+    plan = tfa.plan_tiles(B, S, H, Hkv, D, sm_count=SM_COUNT)
+    g = H // Hkv
+    P, nwg, n_tiles, block_k, grid = plan
+    assert P * g <= tfa.ROWS and nwg in (1, 2) and grid == (B * Hkv, n_tiles, 1)
+    assert block_k == (tfa.BK_F32_SHORT if S <= tfa.BK_F32_SHORT else tfa.BK)
+    assert (n_tiles - 1) * nwg * P < S <= n_tiles * nwg * P      # no empty CTA
+    seen = {}
+    for _, _, _, pos, head in packed_rows(plan, S, g):
+        seen[pos, head] = seen.get((pos, head), 0) + 1
+    assert seen == {(s, h): 1 for s in range(S) for h in range(g)}
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D", PLAN_SHAPES[:4] + [(1, 300, 12, 1, 64)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100), (False, None),
+                                           (False, 64)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_plan_tiles_kv_range_holds_every_unmasked_pair(B, S, H, Hkv, D, causal, window, bf16):
+    plan = tfa.plan_tiles(B, S, H, Hkv, D, bf16=bf16, sm_count=SM_COUNT)
+    P, nwg, bk = plan.positions, plan.warpgroups, plan.block_k
+    cols = np.arange(S)
+    for t in range(plan.n_tiles):
+        q0 = t * nwg * P
+        pos = np.arange(q0, min(q0 + nwg * P, S))
+        keep = np.ones((len(pos), S), bool)
+        if causal:
+            keep &= cols[None, :] <= pos[:, None]
+        if window:
+            keep &= cols[None, :] > pos[:, None] - window
+        tiles = kv_tiles(int(pos[0]), int(pos[-1]), S, causal, window, bk)
+        assert set(np.unique(cols[keep.any(0)] // bk)) <= set(tiles)
+        assert tiles.start >= 0 and tiles.stop <= _cdiv(S, bk) and len(tiles) >= 1
+
+
+def test_plan_tiles_main_path_shapes():
+    """llama3.2-1b (g 4: 16 positions) and starcoder2-3b (g 12: 5) at the
+    serving length take one consumer warpgroup (64 and 56 CTAs on 132 SMs);
+    at 2048 tokens two (512 and 410 CTAs); f32 takes 32-row K/V tiles at
+    the serving length, bf16 128-row ones at 2048; g = 3 packs 21
+    positions."""
+    plans = [tfa.plan_tiles(*shape, sm_count=SM_COUNT) for shape in PLAN_SHAPES[:4]]
+    assert plans == [(16, 1, 2, 32, (32, 2, 1)), (5, 1, 7, 32, (8, 7, 1)),
+                     (16, 2, 64, 64, (8, 64, 1)), (5, 2, 205, 64, (2, 205, 1))]
+    assert [p.grid[0] * p.grid[1] for p in plans] == [64, 56, 512, 410]
+    assert [tfa.plan_tiles(*shape, bf16=True, sm_count=SM_COUNT).block_k
+            for shape in PLAN_SHAPES[:4]] == [64, 64, 128, 128]
+    assert tfa.plan_tiles(1, 100, 6, 2, 128, sm_count=SM_COUNT).positions == 21
+    assert tfa.plan_tiles(1, 64, 16, 1, 64, warpgroups=2).n_tiles == 8
+
+
+@pytest.mark.parametrize("args", [(1, 32, 4, 2, 60), (1, 32, 4, 2, 136), (1, 32, 34, 2, 64),
+                                  (1, 32, 6, 4, 64), (0, 32, 4, 2, 64)])
+def test_plan_tiles_refuses_what_the_kernel_does_not_take(args):
+    with pytest.raises(ValueError):
+        tfa.plan_tiles(*args)
+
+
+def kv_tiles(q_first, q_last, S, causal, window, bk):
+    """The kernel's kv range: the K/V tiles (bk rows each) from the
+    window's first tile to the causal diagonal of the CTA's last position;
+    every other tile is masked for all of its positions."""
+    lo = max(0, q_first - window + 1) // bk if window else 0
+    hi = q_last // bk + 1 if causal else _cdiv(S, bk)
+    return range(lo, hi)
+
+
+def tf32_round(x):
+    """Round to nearest (ties away from zero) to TF32's 10 mantissa bits:
+    the low 13 bits of the f32 pattern cleared after adding half of them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_trunc(x):
+    """What the tensor core reads of an f32 pattern given as TF32."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_3xtf32(a, b):
+    """The kernel's f32 product: hi = tf32(x) rounded, lo = x - hi (exact)
+    read as TF32 by truncation, a.b as hi.lo + lo.hi + hi.hi; each TF32
+    product is exact in f32, sums in f32."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    al, bl = tf32_trunc(a - ah), tf32_trunc(b - bh)
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def matmul_tf32(a, b):
+    return tf32_round(a) @ tf32_round(b)
+
+
+def packed_flash_model(q, k, v, *, causal=True, window=None, plan=None, matmul=torch.matmul):
+    """The CUDA kernel's algorithm in plain f32 torch: per packed tile and
+    warpgroup, rows position-major (position q0w + r // g, head r % g); the
+    kv tiles of ``kv_tiles(first, last position of the CTA)`` at the
+    kernel's tile size for the dtype; a tile-by-tile online softmax with
+    finfo.min for masked columns and -inf past S; the scale on the f32
+    product; a zero denominator becomes 1."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    plan = plan or tfa.plan_tiles(B, S, H, Hkv, D, bf16=q.dtype == torch.bfloat16)
+    P, nwg, BKT = plan.positions, plan.warpgroups, plan.block_k
+    neg = torch.finfo(torch.float32).min
+    qh = q.float().reshape(B, S, Hkv, g, D).permute(0, 2, 1, 3, 4)      # [B,Hkv,S,g,D]
+    pad = _cdiv(S, BKT) * BKT - S
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad)).transpose(1, 2)
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad)).transpose(1, 2)
+    out = torch.zeros(B, S, H, D)
+    oh = out.view(B, S, Hkv, g, D).permute(0, 2, 1, 3, 4)
+    for t in range(plan.n_tiles):
+        q0 = t * nwg * P
+        tiles = kv_tiles(q0, min(q0 + nwg * P, S) - 1, S, causal, window, BKT)
+        for w in range(nwg):
+            r = torch.arange(P * g)
+            pos, head = q0 + w * P + r // g, r % g
+            rows = qh[:, :, pos.clamp(max=S - 1), head]                  # [B,Hkv,R,D]
+            m = torch.full(rows.shape[:3], neg)
+            l = torch.zeros(rows.shape[:3])
+            acc = torch.zeros(rows.shape)
+            for kt in tiles:
+                cols = torch.arange(kt * BKT, (kt + 1) * BKT)
+                x = matmul(rows, kf[:, :, kt * BKT:(kt + 1) * BKT].transpose(-1, -2)) / D ** 0.5
+                masked = torch.zeros(len(r), BKT, dtype=torch.bool)
+                if causal:
+                    masked |= cols[None, :] > pos[:, None]
+                if window:
+                    masked |= cols[None, :] <= pos[:, None] - window
+                x = x.masked_fill(masked, neg).masked_fill(cols >= S, -torch.inf)
+                m_new = torch.maximum(m, x.max(-1).values)
+                p = torch.exp(x - m_new[..., None])
+                alpha = torch.exp(m - m_new)
+                l = alpha * l + p.sum(-1)
+                acc = acc * alpha[..., None] + matmul(p, vf[:, :, kt * BKT:(kt + 1) * BKT])
+                m = m_new
+            o = acc / torch.where(l == 0, 1.0, l)[..., None]
+            keep = pos < S
+            oh[:, :, pos[keep], head[keep]] = o[:, :, keep]
+    return out.to(q.dtype)
+
+
+def fa_inputs(seed, B, S, H, Hkv, D, dtype="float32"):
+    return inputs(seed, [(B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)], dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,Hkv,D", FA_SHAPES)
+def test_packed_flash_model_matches_pallas_interpret(B, S, H, Hkv, D, dtype):
+    (jq, jk, jv), (q, k, v) = fa_inputs(13, B, S, H, Hkv, D, dtype)
+    got = packed_flash_model(q, k, v)
+    want = jops.flash_attention(jq, jk, jv, causal=True)
+    assert got.dtype == DTYPES[dtype][1] and tuple(got.shape) == want.shape
+    assert max_err(got, want) < DTYPES[dtype][2]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 32), (True, 64), (True, 128), (False, None)])
+def test_packed_flash_model_masks_match_pallas_interpret(causal, window, dtype):
+    """Windows whose edge cuts through the 64-row kv tiles and the packed
+    tiles, and the non-causal case (every kv tile of the sequence)."""
+    (jq, jk, jv), (q, k, v) = fa_inputs(14, 1, 256, 4, 2, 64, dtype)
+    got = packed_flash_model(q, k, v, causal=causal, window=window)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, window=window)
+    assert max_err(got, want) < DTYPES[dtype][2]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,Hkv,D,window", [
+    (2, 33, 32, 8, 64, None), (1, 101, 24, 2, 128, None), (1, 100, 8, 2, 80, 40),
+    (1, 77, 6, 2, 128, None)])
+def test_packed_flash_model_ragged_matches_reference_oracle(B, S, H, Hkv, D, window, dtype):
+    """S no multiple of P (16, 5, 16, 21 positions) nor of the kv tile: the
+    Pallas kernel does not take these, so the oracle holds the model."""
+    plan = tfa.plan_tiles(B, S, H, Hkv, D, bf16=dtype == "bfloat16")
+    assert S % plan.positions and S % plan.block_k
+    (jq, jk, jv), (q, k, v) = fa_inputs(15, B, S, H, Hkv, D, dtype)
+    got = packed_flash_model(q, k, v, window=window, plan=plan)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=True, window=window)
+    assert max_err(got, want) < DTYPES[dtype][2]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D", PLAN_SHAPES[:2])
+def test_3xtf32_products_hold_f32_accuracy(B, S, H, Hkv, D):
+    """The f32 kernel's split products stay within 1e-5 of f32 at the slice
+    shapes, against the f64 oracle; one TF32 pass does not, which is why the
+    kernel never takes it."""
+    rng = np.random.default_rng(16)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    exact = ref.flash_attention_ref(q.double(), k.double(), v.double()).float()
+    f32 = packed_flash_model(q, k, v)
+    split3 = packed_flash_model(q, k, v, matmul=matmul_3xtf32)
+    single = packed_flash_model(q, k, v, matmul=matmul_tf32)
+    assert max_err(f32, exact) < 1e-5
+    assert max_err(split3, exact) < 1e-5
+    assert max_err(split3, f32) < 1e-5
+    assert max_err(single, exact) > 1e-4
