@@ -25,12 +25,20 @@ Phases (any failure exits non-zero):
   decode   the launcher's decode loop, llama3.2-1b full width, batch 4,
            context 1024, 32 tokens; launch counts; teacher-forced forward
            (flash kernel) against the decode logits (decode kernel)
+  runtime  Session.serve of the registered serve2 pipeline's stage 1
+           (llama3.2-1b / starcoder2-3b at full width, live on the card) under
+           the capacity controller, bursty arrivals, seed 3, 120 s of virtual
+           time: every request served, both variants executed, the virtual-
+           time results identical to the same spec with real=False, flash
+           launches counted, the logits of the first batch of each variant
+           and of the largest batch against the plain attention path
 The last two lines are the kernel summary and the device line, as JSON.
 Imports only torch, numpy and the port (never jax or the JAX package).
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import re
@@ -435,6 +443,103 @@ def phase_decode(model) -> dict:
     return counts
 
 
+def phase_runtime() -> dict:
+    from dataclasses import replace
+
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.models import api as model_api
+
+    # the live stage of the registered serve2 pipeline (its stage 0 family has
+    # no model code yet) under capacity, the one non-learned controller that
+    # switches this stage's variant
+    spec = api.ExperimentSpec(
+        pipeline=api.PipelineSpec(name="serve2-stage1",
+                                  stages=(("llama3.2-1b", "starcoder2-3b"),),
+                                  quants=("bf16",)),
+        scenario=replace(api.get_scenario("bursty"), seed=3, horizon=120),
+        controller=replace(api.get_controller("capacity"), seed=3),
+        backend="runtime", real=True)
+    stages = spec.pipeline.stages[0]
+    check(list(stages) == list(api.get_pipeline("serve2").stages[1]),
+          "runtime phase no longer serves serve2's stage 1")
+    virtual = api.Session(replace(spec, real=False)).serve()
+
+    sess = api.Session(spec, device="cuda")
+    t0 = time.perf_counter()
+    server = sess.stage_servers()[0]
+    torch.cuda.synchronize()
+    print(f"runtime: built {list(stages)} at full width in {time.perf_counter() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card", flush=True)
+    batches = []                    # (variant, tokens, output tokens, wall s) per batch
+    execute = server.execute
+
+    def recorded(z, tokens):
+        t = time.perf_counter()
+        out = execute(z, tokens)
+        batches.append((int(z) % len(stages), tokens, out, time.perf_counter() - t))
+        return out
+
+    server.execute = recorded       # the executor Session.build_env attaches
+    intervals = []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = sess.serve(on_step=lambda env, cfg, info: intervals.append(
+        (env.runtime.now, int(cfg.z[0]), cfg.b[0], info["processed"])))
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+
+    s = rep["summary"]
+    print(f"runtime: {s['submitted']} requests submitted, {s['served']} served; "
+          f"variant per interval {[z for _, z, _, _ in intervals]} "
+          f"({', '.join(f'{stages[z]}' for z in range(len(stages)))}), "
+          f"{s['switches']} switches", flush=True)
+    for t, z, b, served in intervals:
+        print(f"runtime: t={t:5.0f}s z={z} b={b} served={served}", flush=True)
+    for z, name in enumerate(stages):
+        sizes = [len(tok) for v, tok, _, _ in batches if v == z]
+        check(bool(sizes), f"runtime: variant {z} ({name}) never executed")
+        print(f"runtime: {name}: {len(sizes)} batches, sizes {min(sizes)}-{max(sizes)}, "
+              f"{sum(sizes)} requests", flush=True)
+    exec_s = sum(sec for *_, sec in batches)
+    print(f"runtime: serve wall {wall:.3f}s, inside execute {exec_s:.3f}s "
+          f"({exec_s / wall:.4f} of it); {len(batches) / wall:.2f} batches/s, "
+          f"{s['served'] / wall:.2f} req/s live through the stage; launches {counts}",
+          flush=True)
+
+    check(s["served"] == s["submitted"] > 0,
+          f"runtime: {s['served']} of {s['submitted']} requests served")
+    for key in ("summary", "rewards", "configs"):
+        check(rep[key] == virtual[key], f"runtime: {key} differs from the real=False run")
+    want = sum(server.variants[z].n_layers for z, *_ in batches)
+    check(counts["flash_attention"] == want,
+          f"runtime: flash launches {counts['flash_attention']} != {want}")
+    check(counts["decode_attention"] == 0, "runtime: decode kernel launched while serving")
+
+    # hold the kernel path's logits against the plain attention path on the
+    # first batch of each variant and on the largest batch
+    firsts = [next(i for i, b in enumerate(batches) if b[0] == z) for z in range(len(stages))]
+    largest = max(range(len(batches)), key=lambda i: len(batches[i][1]))
+    for i in dict.fromkeys(firsts + [largest]):
+        z, tokens, out, _ = batches[i]
+        cfg = server.variants[z]
+        batch = {"tokens": torch.as_tensor(tokens % cfg.vocab, device="cuda")}
+        with torch.inference_mode():
+            lk, _ = model_api.forward(server.params[z], batch, cfg)
+            with plain_attention():
+                lp, _ = model_api.forward(server.params[z], batch, cfg)
+        check(bool(torch.isfinite(lk).all()), f"runtime: {cfg.name}: non-finite logits")
+        err = (lk - lp).abs().max().item()
+        same = float((lk.argmax(-1).cpu().numpy() == out).mean())
+        agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean().item())
+        print(f"runtime: batch {i} ({cfg.name}, {len(tokens)} requests) kernel vs plain "
+              f"attention logits max|diff| {err:.3e} (tol {LOGIT_TOL}), argmax agreement "
+              f"{agree:.4f}, served tokens reproduced {same:.4f}", flush=True)
+        check(err < LOGIT_TOL, f"runtime: {cfg.name}: kernel path logits off by {err}")
+        check(same == 1.0, f"runtime: {cfg.name}: served tokens not reproduced")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
@@ -464,10 +569,14 @@ def main():
     summary = phase_kernels(Timer())
     serve_counts, stage = phase_serve()
     decode_counts = phase_decode(stage.params[0])
+    del stage                       # the runtime phase builds its own models
+    gc.collect()
+    torch.cuda.empty_cache()
+    runtime_counts = phase_runtime()
 
     kernels = []
     for name in build.KERNELS:
-        launches = serve_counts[name] + decode_counts[name]
+        launches = serve_counts[name] + decode_counts[name] + runtime_counts[name]
         check(launches > 0, f"{name} never launched on the main path")
         row = summary[name]
         src, replaces = SOURCES[name]

@@ -8,5 +8,8 @@ on a CUDA tensor runs through the hand-written Hopper kernels in
 
 Ported so far: the dense-family stage-serving data plane (``models``,
 ``nn``, ``kernels``, ``serving.engine``/``serving.batcher``,
-``launch.serve``'s single-arch decode mode).
+``launch.serve``'s single-arch decode mode), and the control half without
+learning (``core.mdp``/``controller``/``expert``/``baselines``, ``cluster``,
+``serving.arrivals``/``telemetry``/``runtime``, ``api``, the launcher's
+``--pipeline`` mode), NumPy as in the reference.
 """

@@ -1,0 +1,9 @@
+"""granite-3-8b [hf:ibm-granite/granite-3.0-2b-base family, 8B point].
+
+40L d_model=4096 32H (GQA kv=8) d_ff=12800 vocab=49155."""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-3-8b", family="dense",
+    n_layers=40, d_model=4096, n_heads=32, n_kv=8, d_ff=12800, vocab=49155,
+)

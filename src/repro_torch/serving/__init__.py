@@ -1,5 +1,13 @@
-"""Serving data plane of the port: batchers and the stage/pipeline engine.
-The event-driven runtime, telemetry and arrivals come with the next slice."""
+"""Serving layer of the port: batchers, the stage/pipeline engine, arrival
+processes, telemetry and the event-driven runtime. The multi-tenant fleet
+comes with ROADMAP Queue 1 item 10."""
 from repro_torch.serving.batcher import (Batcher, ContinuousBatcher, Request,
                                          stack_tokens)
 from repro_torch.serving.engine import PipelineServer, StageServer
+from repro_torch.serving.arrivals import (ArrivalProcess, PoissonArrivals,
+                                          TraceArrivals, BurstyArrivals,
+                                          RampArrivals, make_arrivals,
+                                          arrivals_from_dict, SCENARIOS)
+from repro_torch.serving.telemetry import Telemetry, percentile
+from repro_torch.serving.runtime import (ServingRuntime, RuntimeStage, EventLoop,
+                                         COLD_START_SECONDS)
