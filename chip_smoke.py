@@ -32,6 +32,15 @@ Phases (any failure exits non-zero):
            time results identical to the same spec with real=False, flash
            launches counted, the logits of the first batch of each variant
            and of the largest batch against the plain attention path
+  opd      the registered opd controller on the same stage: Session.train on
+           the card (4 episodes, 4 vectorized envs, expert every 2nd; episode
+           wall times, the median synchronised ppo_minibatch_update, one
+           vec_rollout of paper-4stage at 4 and 64 envs), the trained
+           policy's log-probs, one PPO update and a greedy 4-env rollout held
+           against the same computation on the CPU, then Session.serve with
+           real=True under the trained policy (the runtime phase's checks,
+           decision times d_t) and one epoch of the LSTM load predictor
+           (predict_batch card vs CPU)
 The last two lines are the kernel summary and the device line, as JSON.
 Imports only torch, numpy and the port (never jax or the JAX package).
 """
@@ -443,33 +452,41 @@ def phase_decode(model) -> dict:
     return counts
 
 
-def phase_runtime() -> dict:
+def stage1_spec(controller: str):
+    """The live stage of the registered serve2 pipeline (its stage 0 family
+    has no model code yet): bursty arrivals, seed 3, 120 s of virtual time,
+    under the registered ``controller`` with seed 3."""
     from dataclasses import replace
 
     from repro_torch import api
-    from repro_torch.kernels import ops
-    from repro_torch.models import api as model_api
-
-    # the live stage of the registered serve2 pipeline (its stage 0 family has
-    # no model code yet) under capacity, the one non-learned controller that
-    # switches this stage's variant
     spec = api.ExperimentSpec(
         pipeline=api.PipelineSpec(name="serve2-stage1",
                                   stages=(("llama3.2-1b", "starcoder2-3b"),),
                                   quants=("bf16",)),
         scenario=replace(api.get_scenario("bursty"), seed=3, horizon=120),
-        controller=replace(api.get_controller("capacity"), seed=3),
+        controller=replace(api.get_controller(controller), seed=3),
         backend="runtime", real=True)
-    stages = spec.pipeline.stages[0]
-    check(list(stages) == list(api.get_pipeline("serve2").stages[1]),
-          "runtime phase no longer serves serve2's stage 1")
-    virtual = api.Session(replace(spec, real=False)).serve()
+    check(list(spec.pipeline.stages[0]) == list(api.get_pipeline("serve2").stages[1]),
+          "the live phases no longer serve serve2's stage 1")
+    return spec
 
-    sess = api.Session(spec, device="cuda")
+
+def serve_live(sess, virtual: dict, tag: str, all_variants: bool) -> tuple[dict, dict]:
+    """``sess.serve()`` of a real stage1 session with the live stage's
+    executor recorded. Checks: every request served, the virtual-time
+    results equal ``virtual`` (the same spec with real=False), flash launches
+    = Σ n_layers over the executed batches, no decode launch, each variant
+    executed (``all_variants``), and the kernel path's logits against the
+    plain attention path on the first batch of each variant that ran and on
+    the largest batch. Returns the report and the launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import api as model_api
+
+    stages = sess.spec.pipeline.stages[0]
     t0 = time.perf_counter()
     server = sess.stage_servers()[0]
     torch.cuda.synchronize()
-    print(f"runtime: built {list(stages)} at full width in {time.perf_counter() - t0:.1f}s, "
+    print(f"{tag}: built {list(stages)} at full width in {time.perf_counter() - t0:.1f}s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card", flush=True)
     batches = []                    # (variant, tokens, output tokens, wall s) per batch
     execute = server.execute
@@ -485,40 +502,41 @@ def phase_runtime() -> dict:
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     rep = sess.serve(on_step=lambda env, cfg, info: intervals.append(
-        (env.runtime.now, int(cfg.z[0]), cfg.b[0], info["processed"])))
+        (env.runtime.now, int(cfg.z[0]), cfg.f[0], cfg.b[0], info["processed"])))
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
 
     s = rep["summary"]
-    print(f"runtime: {s['submitted']} requests submitted, {s['served']} served; "
-          f"variant per interval {[z for _, z, _, _ in intervals]} "
+    print(f"{tag}: {s['submitted']} requests submitted, {s['served']} served; "
+          f"variant per interval {[iv[1] for iv in intervals]} "
           f"({', '.join(f'{stages[z]}' for z in range(len(stages)))}), "
           f"{s['switches']} switches", flush=True)
-    for t, z, b, served in intervals:
-        print(f"runtime: t={t:5.0f}s z={z} b={b} served={served}", flush=True)
-    for z, name in enumerate(stages):
+    for t, z, f, b, served in intervals:
+        print(f"{tag}: t={t:5.0f}s z={z} f={f} b={b} served={served}", flush=True)
+    ran = sorted({v for v, *_ in batches})
+    for z in range(len(stages)):
         sizes = [len(tok) for v, tok, _, _ in batches if v == z]
-        check(bool(sizes), f"runtime: variant {z} ({name}) never executed")
-        print(f"runtime: {name}: {len(sizes)} batches, sizes {min(sizes)}-{max(sizes)}, "
-              f"{sum(sizes)} requests", flush=True)
+        check(bool(sizes) or not all_variants,
+              f"{tag}: variant {z} ({stages[z]}) never executed")
+        if sizes:
+            print(f"{tag}: {stages[z]}: {len(sizes)} batches, sizes {min(sizes)}-"
+                  f"{max(sizes)}, {sum(sizes)} requests", flush=True)
     exec_s = sum(sec for *_, sec in batches)
-    print(f"runtime: serve wall {wall:.3f}s, inside execute {exec_s:.3f}s "
+    print(f"{tag}: serve wall {wall:.3f}s, inside execute {exec_s:.3f}s "
           f"({exec_s / wall:.4f} of it); {len(batches) / wall:.2f} batches/s, "
           f"{s['served'] / wall:.2f} req/s live through the stage; launches {counts}",
           flush=True)
 
     check(s["served"] == s["submitted"] > 0,
-          f"runtime: {s['served']} of {s['submitted']} requests served")
+          f"{tag}: {s['served']} of {s['submitted']} requests served")
     for key in ("summary", "rewards", "configs"):
-        check(rep[key] == virtual[key], f"runtime: {key} differs from the real=False run")
+        check(rep[key] == virtual[key], f"{tag}: {key} differs from the real=False run")
     want = sum(server.variants[z].n_layers for z, *_ in batches)
     check(counts["flash_attention"] == want,
-          f"runtime: flash launches {counts['flash_attention']} != {want}")
-    check(counts["decode_attention"] == 0, "runtime: decode kernel launched while serving")
+          f"{tag}: flash launches {counts['flash_attention']} != {want}")
+    check(counts["decode_attention"] == 0, f"{tag}: decode kernel launched while serving")
 
-    # hold the kernel path's logits against the plain attention path on the
-    # first batch of each variant and on the largest batch
-    firsts = [next(i for i, b in enumerate(batches) if b[0] == z) for z in range(len(stages))]
+    firsts = [next(i for i, b in enumerate(batches) if b[0] == z) for z in ran]
     largest = max(range(len(batches)), key=lambda i: len(batches[i][1]))
     for i in dict.fromkeys(firsts + [largest]):
         z, tokens, out, _ = batches[i]
@@ -528,15 +546,246 @@ def phase_runtime() -> dict:
             lk, _ = model_api.forward(server.params[z], batch, cfg)
             with plain_attention():
                 lp, _ = model_api.forward(server.params[z], batch, cfg)
-        check(bool(torch.isfinite(lk).all()), f"runtime: {cfg.name}: non-finite logits")
+        check(bool(torch.isfinite(lk).all()), f"{tag}: {cfg.name}: non-finite logits")
         err = (lk - lp).abs().max().item()
         same = float((lk.argmax(-1).cpu().numpy() == out).mean())
         agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean().item())
-        print(f"runtime: batch {i} ({cfg.name}, {len(tokens)} requests) kernel vs plain "
+        print(f"{tag}: batch {i} ({cfg.name}, {len(tokens)} requests) kernel vs plain "
               f"attention logits max|diff| {err:.3e} (tol {LOGIT_TOL}), argmax agreement "
               f"{agree:.4f}, served tokens reproduced {same:.4f}", flush=True)
-        check(err < LOGIT_TOL, f"runtime: {cfg.name}: kernel path logits off by {err}")
-        check(same == 1.0, f"runtime: {cfg.name}: served tokens not reproduced")
+        check(err < LOGIT_TOL, f"{tag}: {cfg.name}: kernel path logits off by {err}")
+        check(same == 1.0, f"{tag}: {cfg.name}: served tokens not reproduced")
+    return rep, counts
+
+
+def phase_runtime() -> dict:
+    from dataclasses import replace
+
+    from repro_torch import api
+
+    # the capacity controller: the one non-learned controller that switches
+    # this stage's variant
+    spec = stage1_spec("capacity")
+    virtual = api.Session(replace(spec, real=False)).serve()
+    return serve_live(api.Session(spec, device="cuda"), virtual, "runtime",
+                      all_variants=True)[1]
+
+
+def rel_err(want: torch.Tensor, got: torch.Tensor) -> float:
+    """max |want - got| over max(1, max |want|), both on the CPU."""
+    want, got = want.detach().float().cpu(), got.detach().float().cpu()
+    return (want - got).abs().max().item() / max(1.0, want.abs().max().item())
+
+
+def synced_ms(fn) -> float:
+    """Wall time of one call of ``fn`` between two synchronisations, in ms."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def profiled(tag: str, fn):
+    """One call of ``fn`` (after a warm-up call) under torch.profiler: wall
+    time, device kernel time and launches, the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    launches = sum(e.count for e in events)
+    print(f"opd: profile {tag}: wall {wall_ms:.3f} ms (profiler on), device kernels "
+          f"{busy_ms:.3f} ms in {launches} launches, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}, {wall_ms * 1e3 / max(launches, 1):.1f} us of "
+          f"wall per launch", flush=True)
+
+
+def to_cpu_opt(opt: dict) -> dict:
+    return {"m": {k: v.cpu() for k, v in opt["m"].items()},
+            "v": {k: v.cpu() for k, v in opt["v"].items()}, "step": opt["step"]}
+
+
+def phase_opd() -> dict:
+    """Train the registered opd controller on the card, hold its networks
+    and one update against the same computation on the CPU, serve the live
+    stage with the trained policy, train the load predictor."""
+    import copy
+    from dataclasses import replace
+
+    from repro_torch import api
+    from repro_torch.cluster import make_trace
+    from repro_torch.core import policy, ppo, predictor, vecenv
+
+    spec = stage1_spec("opd")
+    sess = api.Session(spec, device="cuda")
+    stamps = [time.perf_counter()]
+
+    def log(msg):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        print(f"opd: {msg} ({(stamps[-1] - stamps[-2]) * 1e3:.1f} ms)", flush=True)
+
+    sess.train(log=log)
+    tr = sess.trainer
+    params, hist = tr.params, tr.history
+    episode_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    check(hist["expert"] == [False, True, False, True],
+          f"opd: expert episodes {hist['expert']} != [False, True, False, True]")
+    check(all(np.isfinite(hist[k]).all() for k in
+              ("reward", "loss", "policy_loss", "value_loss", "entropy")),
+          "opd: non-finite training history")
+    on_card = (list(params.parameters()) + list(tr.opt["m"].values())
+               + list(tr.opt["v"].values()))
+    check(all(t.device.type == "cuda" for t in on_card),
+          "opd: a policy parameter or optimiser moment is not on the card")
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"opd: trained {len(hist['reward'])} episodes ({tr.num_envs} envs, expert "
+          f"{hist['expert']}) on {next(params.parameters()).device}, {n_params} policy "
+          f"parameters; episode wall ms {[round(t, 1) for t in episode_ms]}", flush=True)
+
+    # a fresh on-policy batch of the trained policy: 4 envs x 120 intervals
+    states, actions, logps, _, adv, returns = tr._rollout_vec(len(hist["reward"]) + 1)
+    mb, cfg = tr.ppo.minibatch, tr.ppo
+    kw = dict(clip_eps=cfg.clip_eps, c1=cfg.c1, c2=cfg.c2, lr=cfg.lr)
+    bsel = np.random.default_rng(0).integers(0, len(tr.expert_states), mb)
+    batch = [torch.as_tensor(a[:mb], device="cuda")
+             for a in (states, actions, logps, adv, returns)]
+    batch += [torch.as_tensor(a[bsel], device="cuda")
+              for a in (tr.expert_states, tr.expert_actions)]
+    p_t, o_t = copy.deepcopy(params), copy.deepcopy(tr.opt)
+
+    def update():
+        nonlocal p_t, o_t
+        p_t, o_t, *_ = ppo.ppo_minibatch_update(p_t, o_t, *batch, cfg.bc_coef, **kw)
+
+    upd_ms = [synced_ms(update) for _ in range(25)][5:]
+    print(f"opd: ppo_minibatch_update (minibatch {mb}, BC batch {mb}) median "
+          f"{float(np.median(upd_ms)):.3f} ms, min {min(upd_ms):.3f} ms over "
+          f"{len(upd_ms)} synchronised calls", flush=True)
+    profiled("ppo_minibatch_update", update)
+    state = torch.as_tensor(states[0], device="cuda")
+
+    def decision():
+        with torch.no_grad():
+            policy.sample_action(params, state, None, greedy=True)[0].cpu()
+
+    profiled("one greedy decision (sample_action + copy to host)", decision)
+
+    # -- the card against the plain CPU computation on the same inputs
+    cpu_params, cpu_opt = copy.deepcopy(params).cpu(), to_cpu_opt(tr.opt)
+    s_all, a_all = torch.as_tensor(states), torch.as_tensor(actions)
+    with torch.no_grad():
+        on_gpu = policy.log_prob_entropy(params, s_all.cuda(), a_all.cuda())
+        on_cpu = policy.log_prob_entropy(cpu_params, s_all, a_all)
+    lp_err = max(rel_err(c, g) for c, g in zip(on_cpu, on_gpu, strict=True))
+    print(f"opd: log_prob_entropy of {len(s_all)} trained-episode states, card vs CPU "
+          f"max rel err {lp_err:.3e} (tol 1e-4)", flush=True)
+    check(lp_err < 1e-4, f"opd: log_prob_entropy card vs CPU off by {lp_err}")
+    g_p, g_o = copy.deepcopy(params), copy.deepcopy(tr.opt)
+    c_p, c_o = copy.deepcopy(cpu_params), copy.deepcopy(cpu_opt)
+    g_p, g_o, *g_l = ppo.ppo_minibatch_update(g_p, g_o, *batch, cfg.bc_coef, **kw)
+    c_p, c_o, *c_l = ppo.ppo_minibatch_update(c_p, c_o, *(b.cpu() for b in batch),
+                                              cfg.bc_coef, **kw)
+    loss_err = max(rel_err(c, g) for c, g in zip(c_l, g_l, strict=True))
+    upd_err = max((c - g.cpu()).abs().max().item() for c, g in
+                  zip(c_p.parameters(), g_p.parameters(), strict=True))
+    # 1e-4, not 1e-5: AdamW maps a gradient near eps = 1e-8 to an update of
+    # order lr = 3e-4 whatever its last bits (tests/test_torch_opd.py)
+    print(f"opd: one ppo_minibatch_update card vs CPU: losses max rel err "
+          f"{loss_err:.3e} (tol 1e-5), params max abs err {upd_err:.3e} (tol 1e-4)",
+          flush=True)
+    check(loss_err < 1e-5, f"opd: PPO losses card vs CPU off by {loss_err}")
+    check(upd_err < 1e-4, f"opd: PPO update card vs CPU off by {upd_err}")
+
+    envs = [tr.make_env(ppo.VEC_SEED_BASE + 1000 + i) for i in range(4)]
+    traces = torch.as_tensor(np.stack([e.trace for e in envs]).astype(np.float32))
+    n_steps = envs[0].n_steps
+    g_traj = vecenv.vec_rollout(params, tr._tables, traces.cuda(), None, n_steps=n_steps,
+                                weights=tr._weights, greedy=True)
+    c_traj = vecenv.vec_rollout(cpu_params, vecenv.tables_from_pipeline(tr.pipe), traces,
+                                None, n_steps=n_steps, weights=tr._weights, greedy=True)
+    g_act, c_act = g_traj["actions"].cpu(), c_traj["actions"]
+    r_err, compared, ties = 0.0, 0, []
+    for i in range(len(envs)):
+        diff = (g_act[i] != c_act[i]).any(dim=1).nonzero()
+        t_div = int(diff[0]) if len(diff) else n_steps
+        if t_div < n_steps:
+            # a flipped greedy choice must be a near-tie; the episodes part there
+            with torch.no_grad():
+                logits, _ = policy.apply_policy(cpu_params, c_traj["states"][i, t_div][None])
+            for h, lg in enumerate(logits):
+                if g_act[i, t_div, h] != c_act[i, t_div, h]:
+                    top = torch.topk(lg[0], 2).values
+                    ties.append((i, t_div, h, (top[0] - top[1]).item()))
+        compared += t_div
+        if t_div:
+            r_err = max(r_err, (g_traj["rewards"][i, :t_div].cpu()
+                                - c_traj["rewards"][i, :t_div]).abs().max().item())
+    print(f"opd: greedy vec_rollout of {len(envs)} envs x {n_steps} intervals, card vs "
+          f"CPU: actions equal on {compared} of {len(envs) * n_steps} steps, near-tie "
+          f"flips {ties}, rewards max abs err {r_err:.3e} (tol 1e-4)", flush=True)
+    check(all(gap < 1e-4 for *_, gap in ties), f"opd: greedy actions differ at {ties}")
+    check(r_err < 1e-4, f"opd: greedy rollout rewards card vs CPU off by {r_err}")
+
+    # -- vec_rollout wall time on the paper's 4-stage pipeline
+    pipe4 = api.get_pipeline("paper-4stage").build()
+    sizes4 = policy.head_sizes(pipe4)
+    pol4 = policy.init_policy(0, pipe4.n_tasks * 9, sizes4, device="cuda")
+    tables4 = vecenv.tables_from_pipeline(pipe4, device="cuda")
+    for n_envs in (4, 64):
+        trs = torch.as_tensor(np.stack([make_trace("fluctuating", seed=i, seconds=1200)
+                                        for i in range(n_envs)]).astype(np.float32),
+                              device="cuda")
+        gens = vecenv.env_generators(0, range(n_envs), "cuda")
+        roll = lambda: vecenv.vec_rollout(pol4, tables4, trs, gens, n_steps=120,  # noqa: E731
+                                          weights=tr._weights)
+        first = synced_ms(roll)
+        ms = synced_ms(roll)
+        print(f"opd: vec_rollout paper-4stage (state_dim {pipe4.n_tasks * 9}, "
+              f"{len(sizes4)} heads), {n_envs} envs x 120 intervals: {ms:.1f} ms "
+              f"(first call {first:.1f} ms)", flush=True)
+        profiled(f"vec_rollout paper-4stage, {n_envs} envs", roll)
+
+    # -- serve the live stage with the trained policy
+    virtual = api.Session(replace(spec, real=False), device="cuda").with_params(params).serve()
+    rep, counts = serve_live(sess, virtual, "opd", all_variants=False)
+    dts = np.asarray(rep["decision_times"]) * 1e3
+    print(f"opd: decision d_t on the card over {len(dts)} decisions: median "
+          f"{float(np.median(dts)):.3f} ms, max {float(dts.max()):.3f} ms", flush=True)
+
+    # -- the 25-unit LSTM load predictor, one epoch over the scenario's train traces
+    scen = spec.scenario
+    ptraces = [scen.train_trace(ep) for ep in range(spec.controller.train_episodes)]
+    scale = float(max(t.max() for t in ptraces))
+    X, _ = predictor.make_dataset(ptraces, scale=scale)
+    n_upd = len(range(0, len(X) - 256 + 1, 256))
+    lines = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pp = predictor.train_predictor(ptraces, scale=scale, epochs=1, seed=3,
+                                   log=lines.append, device="cuda")
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3
+    check(all(p.device.type == "cuda" for p in pp.parameters()),
+          "opd: predictor parameters not on the card")
+    Xe, ye = predictor.make_dataset([scen.train_trace(len(ptraces))], scale=scale)
+    with torch.no_grad():
+        g = predictor.predict_batch(pp, torch.as_tensor(Xe, device="cuda"))
+        c = predictor.predict_batch(copy.deepcopy(pp).cpu(), torch.as_tensor(Xe))
+    p_err = (g.cpu() - c).abs().max().item()
+    print(f"opd: {lines[-1]}, {len(X)} windows, {n_upd} steps of batch 256 "
+          f"in {train_ms:.1f} ms ({train_ms / n_upd:.2f} ms per train step incl. set-up); "
+          f"smape {predictor.smape(pp, [scen.train_trace(len(ptraces))], scale=scale):.2f}% "
+          f"on a held-out trace; predict_batch of {len(Xe)} windows card vs CPU "
+          f"max abs err {p_err:.3e} (tol 1e-5)", flush=True)
+    check(bool(torch.isfinite(g).all()), "opd: non-finite predictor output")
+    check(p_err < 1e-5, f"opd: predict_batch card vs CPU off by {p_err}")
     return counts
 
 
@@ -573,10 +822,14 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     runtime_counts = phase_runtime()
+    gc.collect()
+    torch.cuda.empty_cache()
+    opd_counts = phase_opd()
 
     kernels = []
     for name in build.KERNELS:
-        launches = serve_counts[name] + decode_counts[name] + runtime_counts[name]
+        launches = (serve_counts[name] + decode_counts[name] + runtime_counts[name]
+                    + opd_counts[name])
         check(launches > 0, f"{name} never launched on the main path")
         row = summary[name]
         src, replaces = SOURCES[name]

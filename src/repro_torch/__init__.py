@@ -11,5 +11,8 @@ Ported so far: the dense-family stage-serving data plane (``models``,
 ``launch.serve``'s single-arch decode mode), and the control half without
 learning (``core.mdp``/``controller``/``expert``/``baselines``, ``cluster``,
 ``serving.arrivals``/``telemetry``/``runtime``, ``api``, the launcher's
-``--pipeline`` mode), NumPy as in the reference.
+``--pipeline`` mode), NumPy as in the reference, and the OPD agent
+(``core.features``/``policy``/``predictor``/``ppo``/``opd``, the vectorized
+analytic env ``core.vecenv``, ``nn.resnet``/``lstm``, ``train.optim``),
+which trains and decides on a torch device.
 """

@@ -11,11 +11,11 @@ Controllers additionally register a *factory* ``(spec, pipe, params) ->
 controller instance`` used by the Session when serving starts; ``params`` is
 the trained policy state for learned controllers (None otherwise).
 
-The port registers the same names as ``repro/api/registry.py``. The learned
-and forecast-driven controllers (``opd``, ``proactive``,
-``proactive-expert``, ``proactive-capacity``) are registered with their
-reference specs and factories that raise until ROADMAP Queue 1 items 3 and
-9 port them. Fleets (item 10) and predictors (item 9) are not registered yet.
+The port registers the same names as ``repro/api/registry.py``. The
+forecast-driven controllers (``proactive``, ``proactive-expert``,
+``proactive-capacity``) are registered with their reference specs and
+factories that raise until ROADMAP Queue 1 item 9 ports them. Fleets (item
+10) and predictors (item 9) are not registered yet.
 """
 from __future__ import annotations
 
@@ -198,9 +198,14 @@ def _not_ported(name: str, item: str):
 def _register_builtin_controllers():
     from repro_torch.core.baselines import GreedyPolicy, IPAPolicy, RandomPolicy
     from repro_torch.core.expert import CapacityPolicy, ExpertPolicy
+    from repro_torch.core.opd import OPDPolicy
 
+    # the policy decides on the device its parameters live on (the Session
+    # checks that it is the session's)
     register_controller(
-        "opd", _not_ported("opd", "item 3, the OPD agent"),
+        "opd", lambda spec, pipe, params: OPDPolicy(
+            pipe, params, greedy=spec.greedy, seed=spec.seed,
+            device=next(params.parameters()).device),
         spec=ControllerSpec(name="opd", train_episodes=4, num_envs=4))
     register_controller("greedy", lambda spec, pipe, params: GreedyPolicy(pipe))
     register_controller(
@@ -217,7 +222,7 @@ def _register_builtin_controllers():
     # the capacity policy inside a ProactiveController)
     register_controller(
         "proactive",
-        _not_ported("proactive", "items 3 and 9, the OPD agent and forecasting"),
+        _not_ported("proactive", "item 9, forecasting + proactive control"),
         spec=ControllerSpec(name="proactive", train_episodes=4, num_envs=4))
     register_controller(
         "proactive-expert",

@@ -2,14 +2,17 @@
 points used to wire by hand:
 
     sess = Session.from_spec(exp)     # ExperimentSpec, dict, or JSON str
+    sess.train(log=print)             # PPO episodes (no-op for baselines)
     sess.serve(on_step=...)           # run the control loop over the horizon
     sess.report()                     # JSON-safe results incl. the spec
 
-Port of ``repro/api/session.py`` for the non-learned controllers. Every
-random draw (arrival stream, request tokens, random-policy choices) derives
-from the spec's seeds, so a spec reloaded from JSON reproduces the run bit
-for bit, and the same spec gives the reference's rewards, configs and
-summary.
+Port of ``repro/api/session.py``. Every random draw (arrival stream, request
+tokens, policy sampling, PPO training) derives from the spec's seeds, so a
+spec reloaded from JSON reproduces the run bit for bit; under a
+non-learned controller the same spec gives the reference's rewards,
+configs and summary. The OPD policy trains and decides on ``device``
+(default ``"cuda"``), which is resolved when a policy is first needed, so a
+non-learned controller never asks for the card.
 
 ``real=True`` serves each stage through live PyTorch models: a
 ``StageServer`` per stage, built once per session on ``device`` (default
@@ -17,10 +20,11 @@ summary.
 the archs' full width. The executors never move the virtual clock, so a real
 run's virtual-time results equal those of ``real=False``.
 
-Not ported yet, and raising rather than running something else: training a
-learned controller (ROADMAP Queue 1 item 3), a scenario's forecaster (item
-9), the fleet session (item 10), ``debug_checkify`` (item 13) and live
-stages of a family without model code (item 11).
+Not ported yet, and raising rather than running something else: training
+on the runtime twin (``train_backend="runtime"``, ROADMAP Queue 1 item 8),
+a scenario's forecaster and the proactive controllers (item 9), the fleet
+session (item 10), ``debug_checkify`` (item 13) and live stages of a family
+without model code (item 11).
 """
 from __future__ import annotations
 
@@ -33,6 +37,8 @@ from repro_torch.api.registry import controller_factory
 from repro_torch.api.specs import ExperimentSpec
 from repro_torch.cluster.env import PipelineEnv, RuntimeEnv
 from repro_torch.core.controller import decide
+from repro_torch.core.ppo import OPDTrainer, PPOConfig
+from repro_torch.device import resolve_device
 
 # per-step scalar keys copied into the report (runtime adds percentiles etc.)
 _STEP_KEYS = ("qos", "cost", "latency", "throughput", "excess", "demand")
@@ -80,7 +86,9 @@ class Session:
         self.device = device
         self.smoke = smoke
         self.servers = None             # live StageServers of a real run
+        self.trainer: OPDTrainer | None = None
         self.controller = None
+        self._params = None
         self._report: dict | None = None
 
     # ------------------------------------------------------------ creation --
@@ -101,11 +109,43 @@ class Session:
         return self.spec.controller.name in _TRAINABLE
 
     def train(self, episodes: int | None = None, *, log=None) -> Session:
-        """No-op for the non-learned controllers; a learned one raises."""
-        if self.trainable:
+        """Run PPO training for learned controllers; no-op for baselines.
+        On-policy episodes step the closed-form ``PipelineEnv``, vectorized
+        on the session's device via ``num_envs``; expert episodes always step
+        a real env. Fully seeded from the spec."""
+        c, scen = self.spec.controller, self.spec.scenario
+        episodes = c.train_episodes if episodes is None else episodes
+        if not self.trainable or episodes <= 0:
+            return self
+        if c.name == "proactive":
             raise NotImplementedError(
-                f"training controller {self.spec.controller.name!r} needs the "
-                "OPD agent, not ported yet (ROADMAP Queue 1 item 3)")
+                "controller 'proactive' wraps the OPD policy in a forecast-driven "
+                "ProactiveController, not ported yet (ROADMAP Queue 1 item 9, "
+                "forecasting + proactive control)")
+        runtime_backend = c.train_backend == "runtime"
+        if c.train_backend not in ("analytic", "runtime"):
+            raise ValueError(f"unknown train_backend {c.train_backend!r}")
+
+        def make_env(seed):
+            return PipelineEnv(self.pipe,
+                               scen.train_trace(seed, seconds=c.train_seconds),
+                               seed=seed)
+
+        if self.trainer is None:
+            # the runtime backend's twin is not ported: the trainer raises
+            self.trainer = OPDTrainer(
+                self.pipe, make_env,
+                ppo=PPOConfig(expert_freq=c.expert_freq), seed=c.seed,
+                num_envs=c.num_envs,
+                vec_runtime=scen.train_arrivals if runtime_backend else None,
+                device=self.device)
+        for ep in range(1, episodes + 1):
+            self.trainer.train_episode(ep, env_seed=ep)
+            if log:
+                h = self.trainer.history
+                log(f"episode {ep}: reward={h['reward'][-1]:9.2f} "
+                    f"loss={h['loss'][-1]:7.3f} expert={h['expert'][-1]}")
+        self.controller = None          # params changed -> rebuild on serve
         return self
 
     # ------------------------------------------------------------- serving --
@@ -135,9 +175,32 @@ class Session:
                               seq_len=spec.seq_len)
         raise ValueError(f"unknown backend {spec.backend!r}")
 
+    def with_params(self, params) -> Session:
+        """Attach pre-trained policy params (a ``Policy`` on the session's
+        device; skips in-session training) — lets callers share one trained
+        agent across many sessions."""
+        self._params = params
+        self.controller = None
+        return self
+
     def build_controller(self):
         c = self.spec.controller
-        return controller_factory(c.name)(c, self.pipe, None)
+        params = self._params
+        if self.trainable and params is None:
+            if self.trainer is None:
+                self.train()
+            if self.trainer is None:
+                raise RuntimeError(
+                    f"controller {c.name!r} needs training; set "
+                    f"train_episodes > 0 or call session.train(episodes)")
+            params = self.trainer.params
+        if params is not None:
+            want = resolve_device(self.device)
+            have = next(params.parameters()).device
+            if have.type != want.type:
+                raise ValueError(f"policy parameters are on {have}, the session "
+                                 f"runs on {want}")
+        return controller_factory(c.name)(c, self.pipe, params)
 
     def serve(self, *, on_step=None) -> dict:
         """Run the control loop over the scenario horizon. ``on_step(env,
@@ -146,6 +209,10 @@ class Session:
         if self.controller is None:
             self.controller = self.build_controller()
         controller = self.controller
+        if hasattr(controller, "warmup"):
+            # first-call costs happen outside the timed loop, so decide_wall_s
+            # and decision_times agree from the first decision on
+            controller.warmup(env.observe())
         if hasattr(controller, "decision_times"):
             controller.decision_times = []
         # build_env() returns a freshly reset env — no second reset needed
@@ -172,8 +239,9 @@ class Session:
             summary["virtual_now"] = env.runtime.now
         self._report = {
             "experiment": self.spec.to_dict(),
-            # learned params injected from outside come with ROADMAP item 3
-            "external_params": False,
+            # params injected via with_params() are not derivable from the
+            # spec — flag it so nobody mistakes this report for spec-reproducible
+            "external_params": self._params is not None,
             "rewards": rewards,
             "configs": configs,
             "decide_wall_s": decide_walls,
@@ -192,7 +260,7 @@ class Session:
 
     def report(self) -> dict:
         """JSON-safe results of the last serve (run on demand if it has not
-        happened yet)."""
+        happened yet; serve trains lazily when the controller needs it)."""
         if self._report is None:
             self.serve()
         return self._report

@@ -33,13 +33,9 @@ from repro_torch.core.mdp import (ADAPTATION_INTERVAL, COLD_START_FRACTION, Conf
                             score_measurements)
 
 
-def _refuse_learned(predictor, forecaster):
-    """The load predictor and the multi-horizon forecaster are networks the
-    port does not have yet: passing one raises, it is never ignored."""
-    if predictor is not None:
-        raise NotImplementedError(
-            "a load predictor is a learned network, not ported yet (ROADMAP "
-            "Queue 1 item 3, the OPD agent: core/predictor.py)")
+def _refuse_forecaster(forecaster):
+    """The multi-horizon forecaster is a network the port does not have
+    yet: passing one raises, it is never ignored."""
     if forecaster is not None:
         raise NotImplementedError(
             "a load forecaster is a learned network, not ported yet (ROADMAP "
@@ -47,16 +43,17 @@ def _refuse_learned(predictor, forecaster):
 
 
 class _ConfigEnvBase:
-    """Shared MDP plumbing: Eq. (5) observation, default config.
+    """Shared MDP plumbing: Eq. (5) observation, default config, predictor.
 
-    The reference also carries a predictor and a forecaster here; both are
-    networks (ROADMAP Queue 1 items 3 and 9), so the port's envs refuse them
-    and predict the current load. The Eq. (5) state keeps the forecast block
-    at width 0, as the reference's does when no forecaster is attached."""
+    The reference also carries a multi-horizon forecaster here; it is a
+    network the port does not have yet (ROADMAP Queue 1 item 9), so the
+    port's envs refuse one. The Eq. (5) state keeps the forecast block at
+    width 0, as the reference's does when no forecaster is attached."""
 
     pipe: Pipeline
     cfg: Config
     monitor: Monitor
+    predictor = None                 # callable: load_hist -> predicted load
     forecast_in_state = False        # forecast block of Eq. 5 (width 0 here)
 
     @property
@@ -102,6 +99,11 @@ class _ConfigEnvBase:
         raise NotImplementedError
 
     def _predicted_load(self) -> float:
+        if self.predictor is not None:
+            if self.monitor.valid >= getattr(self.predictor,
+                                             "min_history", 0):
+                return float(self.predictor(self.monitor.load_history()))
+            return self._current_load()  # window still padded — see Monitor
         return self._current_load()
 
     def observe(self) -> Observation:
@@ -126,7 +128,8 @@ class PipelineEnv(_ConfigEnvBase):
         self.pipe = pipe
         self.trace = np.asarray(trace, dtype=np.float64)
         self.w = weights or QoSWeights()
-        _refuse_learned(predictor, forecaster)
+        self.predictor = predictor           # callable: load_hist -> predicted
+        _refuse_forecaster(forecaster)
         self.monitor = Monitor(history)
         self.forecast_in_state = bool(forecast_in_state)
         self.rng = np.random.default_rng(seed)
@@ -209,7 +212,8 @@ class RuntimeEnv(_ConfigEnvBase):
         self.arrivals = arrivals
         self.horizon = int(horizon)
         self.w = weights or QoSWeights()
-        _refuse_learned(predictor, forecaster)
+        self.predictor = predictor           # callable: load_hist -> predicted
+        _refuse_forecaster(forecaster)
         self.forecast_in_state = bool(forecast_in_state)
         self.executors = executors
         self.max_wait = DEFAULT_MAX_WAIT if max_wait is None else max_wait

@@ -1,9 +1,22 @@
-"""The control half of the port: the paper's MDP model and its non-learned
-controllers (NumPy, bit-identical to ``repro.core``). The learned half (LSTM
-predictor, features, policy, PPO, OPD) comes with ROADMAP Queue 1 item 3."""
+"""OPD — the paper's contribution: MDP model, LSTM workload predictor,
+residual feature extraction, PPO policy with expert guidance, baselines.
+The NumPy parts are bit-identical to ``repro.core``; the networks and the
+vectorized analytic env run on a torch device. Forecasting and proactive
+control come with ROADMAP Queue 1 item 9, the runtime twin with item 8."""
 from repro_torch.core.mdp import (ModelVariant, Task, Pipeline, Config, QoSWeights,
                                   pipeline_metrics, qos, objective, reward, feasible,
                                   resource_usage)
+from repro_torch.core.predictor import (init_predictor, predict_batch, train_predictor,
+                                        smape, as_predictor_fn, HISTORY, HORIZON)
+from repro_torch.core.features import init_features, extract, FEATURE_DIM
+from repro_torch.core.policy import (init_policy, apply_policy, sample_action,
+                                     log_prob_entropy, head_sizes, action_to_config,
+                                     config_to_action)
+from repro_torch.core.ppo import PPOConfig, OPDTrainer, compute_gae
+from repro_torch.core.vecenv import (PipelineTables, EnvState, tables_from_pipeline,
+                                     init_state, decode_action, observe, step,
+                                     rollout, vec_rollout, gae_scan, vec_gae)
 from repro_torch.core.expert import CapacityPolicy, ExpertPolicy, capacity_config
 from repro_torch.core.baselines import RandomPolicy, GreedyPolicy, IPAPolicy
+from repro_torch.core.opd import OPDPolicy, run_episode, run_episodes_vectorized
 from repro_torch.core.controller import Observation, ControllerBase, decide

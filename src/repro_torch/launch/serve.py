@@ -6,7 +6,7 @@ data plane the OPD controller manages — plus the event-driven pipeline mode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --pipeline \
         [--scenario bursty] [--horizon 120] [--policy greedy] [--seed 3] \
-        [--cluster edge-hetero-3]
+        [--cluster edge-hetero-3] [--device cuda]
 
 Single-arch mode builds the model from a seed with random weights (the
 ``--smoke`` reduced variant unless ``--full``), starts from an empty cache
@@ -14,9 +14,11 @@ and feeds back the argmax token each step. On a CUDA device every layer's
 attention is the decode_attention Hopper kernel. ``--pipeline`` serves an
 arrival scenario through the event-driven runtime with a registered
 controller in the loop and prints per-interval telemetry, line for line as
-the reference launcher does; it runs the virtual-time loop alone and does
-not touch the card. ``--fleet`` raises until the fleet is ported (ROADMAP
-Queue 1 item 10).
+the reference launcher does; it runs the virtual-time loop alone. With
+``--policy opd`` it first trains the OPD agent through the session on
+``--device`` (default ``cuda``), which then decides there; the non-learned
+controllers never touch the card. ``--fleet`` raises until the fleet is
+ported (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -89,7 +91,7 @@ def run_pipeline(args) -> dict:
                              seed=args.seed, horizon=args.horizon),
         controller=api.replace(api.get_controller(args.policy),
                                seed=args.seed))
-    sess = api.Session.from_spec(exp)
+    sess = api.Session.from_spec(exp, device=args.device)
     sess.train(log=print)
 
     def show(env, cfg, info):

@@ -3,8 +3,10 @@
 The reference's parameter pytree arrives as nested dicts of NumPy arrays,
 what ``jax.tree.map(np.asarray, params)`` gives; this module never imports
 jax. Layer leaves are stacked on a leading [L, ...] axis there and are
-unstacked into the port's ``layers`` ModuleList here. Linear weights keep
-the reference's [in, out] layout, so no leaf is transposed.
+unstacked into the port's ``layers`` ModuleList here; a Python list of
+subtrees (the policy's ``heads``, a ResMLP's ``blocks``) fills a ModuleList
+entry by entry. Linear weights keep the reference's [in, out] layout, so no
+leaf is transposed.
 """
 from __future__ import annotations
 
@@ -31,6 +33,14 @@ def _load(module: nn.Module, tree: dict, prefix: str, loaded: set):
                           f"{name}.{i}.", loaded)
             else:
                 _load(child, val, f"{name}.", loaded)
+            continue
+        if isinstance(val, (list, tuple)):
+            child = getattr(module, key)
+            if len(child) != len(val):
+                raise ValueError(f"{name}: reference has {len(val)} entries, "
+                                 f"port has {len(child)}")
+            for i, (sub, subtree) in enumerate(zip(child, val)):
+                _load(sub, subtree, f"{name}.{i}.", loaded)
             continue
         param = getattr(module, key, None)
         if not isinstance(param, torch.Tensor):

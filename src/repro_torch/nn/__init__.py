@@ -2,6 +2,8 @@
 the parameters under the reference's pytree names, plus a function of the
 reference's name that applies it:
     Linear / linear, Embedding / embedding, RMSNorm / rmsnorm, ...
+The serving layers create their parameters without gradients; the OPD
+networks built from them (policy, predictor) switch gradients on.
 """
 from repro_torch.nn.linear import Linear, linear, Embedding, embedding
 from repro_torch.nn.norms import RMSNorm, rmsnorm, LayerNorm, layernorm
@@ -10,3 +12,5 @@ from repro_torch.nn.mlp import MLP, mlp
 from repro_torch.nn.attention import (
     Attention, attention_prefill, attention_decode, make_kv_cache,
 )
+from repro_torch.nn.lstm import LSTM, lstm_scan
+from repro_torch.nn.resnet import ResBlock, resblock, ResMLP, res_mlp

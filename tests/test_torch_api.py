@@ -3,15 +3,17 @@
 
 Specs serialise to the same JSON, the registries hold the same names, and a
 ``Session.serve()`` report under a non-learned controller equals the
-reference's once the wall-clock keys are dropped. Parts the port does not
-have yet raise ``NotImplementedError`` naming their ROADMAP item.
+reference's once the wall-clock keys are dropped. The registered ``opd``
+controller trains through ``Session.train`` on the session's device and
+serves; parts the port does not have yet raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 import json
 import sys
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro import api as japi  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
@@ -20,7 +22,17 @@ from repro_torch.launch import serve  # noqa: E402
 
 WALL_KEYS = ("decide_wall_s", "serve_wall_s", "decision_times", "decision_time_total")
 CONTROLLERS = ("greedy", "capacity", "expert", "ipa", "random")
-LEARNED = ("opd", "proactive", "proactive-expert", "proactive-capacity")
+LEARNED = ("proactive", "proactive-expert", "proactive-capacity")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The OPD networks are tiny: one intra-op thread runs them faster than
+    a pool, whose threads would also contend with other test workers'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def dump(spec) -> str:
@@ -135,21 +147,73 @@ def test_launcher_pipeline_lines_match_reference(argv, capsys, monkeypatch):
     assert got == want and got.count("t=") == int(argv[argv.index("--horizon") + 1]) // 10
 
 
+# ------------------------------------------------------------------ OPD --
+
+def test_session_trains_and_serves_registered_opd():
+    """The registered opd (4 episodes, num_envs 4, expert every 2nd) trains
+    on the session's device through the vectorized analytic path, serves
+    the runtime backend, and a session given the same params through
+    ``with_params`` serves the same results."""
+    exp = experiment(api, "opd", "runtime", pipeline="serve2", horizon=60)
+    sess = api.Session(exp, device="cpu").train()
+    tr = sess.trainer
+    assert tr._vec_ok and tr.num_envs == 4
+    assert tr.history["expert"] == [False, True, False, True]
+    assert all(p.device.type == "cpu" for p in tr.params.parameters())
+    rep = sess.serve()
+    assert rep["external_params"] is False and len(rep["decision_times"]) == 6
+    assert rep["summary"]["served"] == rep["summary"]["submitted"] > 0
+    plain = japi.Session(experiment(japi, "greedy", "runtime")).serve().keys()
+    assert rep.keys() == plain | {"decision_times", "decision_time_total"}
+    again = api.Session(exp, device="cpu").with_params(tr.params).serve()
+    assert again["external_params"] is True
+    assert virtual(again) == {**virtual(rep), "external_params": True}
+
+
+def test_build_controller_trains_lazily_and_checks_the_device():
+    exp = api.replace(experiment(api, "opd", "analytic", pipeline="serve2", horizon=30),
+                      controller=api.replace(api.get_controller("opd"), train_episodes=1,
+                                             train_seconds=120))
+    sess = api.Session(exp, device="cpu")
+    pol = sess.build_controller()
+    assert sess.trainer is not None and pol.params is sess.trainer.params
+    assert len(sess.trainer.history["reward"]) == 1
+    with pytest.raises(ValueError, match="session runs on cpu"):
+        api.Session(exp, device="cpu").with_params(sess.trainer.params.to("meta")) \
+            .build_controller()
+
+
+def test_launcher_trains_and_serves_opd(capsys, monkeypatch):
+    serve.main(["--pipeline", "--policy", "opd", "--device", "cpu", "--horizon", "60"])
+    out = capsys.readouterr().out
+    lines = out.splitlines()
+    assert sum(ln.startswith("episode ") for ln in lines) == 4
+    assert sum(ln.startswith("t=") for ln in lines) == 6 and lines[-1].startswith("served ")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        serve.main(["--pipeline", "--policy", "opd", "--horizon", "10"])
+
+
 # ------------------------------------------------------- not ported yet --
 
 @pytest.mark.parametrize("name", LEARNED)
 def test_learned_controllers_registered_but_raise(name):
     assert dump(api.get_controller(name)) == dump(japi.get_controller(name))
-    sess = api.Session(experiment(api, name, "runtime"))
-    with pytest.raises(NotImplementedError, match="items? (3|9)"):
+    sess = api.Session(experiment(api, name, "runtime"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
         sess.build_controller()
 
 
 def test_training_a_learned_controller_raises():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        api.Session(experiment(api, "opd", "analytic")).train()
-    with pytest.raises(NotImplementedError, match="item 3"):
-        serve.main(["--pipeline", "--policy", "opd", "--horizon", "10"])
+    """What training cannot do yet: the runtime twin (item 8) and the
+    proactive wrapper (item 9)."""
+    exp = experiment(api, "opd", "analytic")
+    runtime = api.replace(exp, controller=api.replace(exp.controller,
+                                                      train_backend="runtime"))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        api.Session(runtime, device="cpu").train()
+    with pytest.raises(NotImplementedError, match="item 9"):
+        api.Session(experiment(api, "proactive", "analytic"), device="cpu").train()
     assert api.Session(experiment(api, "greedy", "analytic")).train().controller is None
 
 

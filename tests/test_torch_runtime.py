@@ -249,10 +249,12 @@ def test_runtime_env_steps_bit_for_bit(controller, pipeline):
 
 
 def test_envs_refuse_predictor_and_forecaster():
+    """The forecaster (item 9) is refused; a load predictor is accepted and
+    feeds Eq. 5's predicted load exactly as in the reference, falling back
+    to the current load while the monitor holds fewer than its
+    ``min_history`` real seconds."""
     pipe = api.get_pipeline("serve3").build()
     trace = np.full(100, 10.0)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        env.PipelineEnv(pipe, trace, predictor=lambda h: 1.0)
     with pytest.raises(NotImplementedError, match="item 9"):
         env.PipelineEnv(pipe, trace, forecaster=lambda h: [1.0])
     with pytest.raises(NotImplementedError, match="item 9"):
@@ -262,6 +264,34 @@ def test_envs_refuse_predictor_and_forecaster():
     obs = e.observe()
     assert e.state_dim == obs.state.size == pipe.n_tasks * 9
     assert obs.forecasts is None and obs.horizons is None
+
+    def predictor(min_history):
+        def fn(hist):
+            return float(np.max(hist[-30:])) * 1.25 + 0.5
+        fn.min_history = min_history
+        return fn
+
+    def observed(ns, min_history):
+        pipe_ = ns.api.get_pipeline("serve3").build()
+        trace_ = np.abs(np.sin(np.arange(100) / 7.0)) * 40.0 + 3.0
+        envs = [ns.env.PipelineEnv(pipe_, trace_, predictor=predictor(min_history)),
+                ns.env.RuntimeEnv(pipe_, ns.arrivals.PoissonArrivals(8.0, seed=2),
+                                  horizon=60, predictor=predictor(min_history))]
+        seen = []
+        for e in envs:
+            greedy = ns.baselines.GreedyPolicy(pipe_)
+            for _ in range(4):
+                o = e.observe()
+                seen.append((o.predicted_load, o.current_load, o.state.tolist()))
+                e.step(greedy(e))
+        return seen
+
+    for min_history in (50, 120):
+        assert observed(PORT, min_history) == observed(REF, min_history)
+    # the analytic env's 100 s trace leaves its monitor short of 120 real
+    # seconds for the first two intervals: current load stands in
+    got = observed(PORT, 120)
+    assert got[0][0] == got[0][1] and got[1][0] == got[1][1] and got[2][0] != got[2][1]
 
 
 # ------------------------------------------------- live smoke executors --
