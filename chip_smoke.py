@@ -41,6 +41,21 @@ Phases (any failure exits non-zero):
            real=True under the trained policy (the runtime phase's checks,
            decision times d_t) and one epoch of the LSTM load predictor
            (predict_batch card vs CPU)
+  calibrate
+           measured stage execution: the StageExecutor grid of
+           repro_torch.launch.calibrate (whisper-small, xlstm-125m, llama3.2-1b,
+           starcoder2-3b at full width, bf16 and int8 weights, b = 1..32): per
+           row the CUDA-graph replay and eager step latencies, the launches of
+           one captured step, flops, bytes, bound and share; the fitted table
+           and hit_rate_repeat >= 0.9; the graphs' logits against the eager
+           steps' at b = 32; then Session.serve of the registered serve2
+           pipeline, both stages live, with perf_source="calibrated" on that
+           table (capacity controller, bursty, seed 3, 120 s): the runtime
+           phase's checks on every stage, and the calibrated virtual p50/p99
+           and cost beside the analytic (TPU v5e) run's
+The kernels phase also holds whisper-small's g = 1 shapes (flash B4 S32
+H12 Hkv12 D64, decode B4 H12 C32) in both dtypes and bf16 q over an f32
+cache (llama3.2-1b's and whisper-small's decode steps), all timed.
 The last two lines are the kernel summary and the device line, as JSON.
 Imports only torch, numpy and the port (never jax or the JAX package).
 """
@@ -97,6 +112,13 @@ SLICE_DEC = (4, 32, 8, 64, 1024, 32)            # llama3.2-1b decode, last step
 # with 32 and with 1024 valid slots
 TIMED_DEC = [(4, 32, 8, 64, 1024, 1024), (4, 24, 2, 128, 1024, 32),
              (4, 24, 2, 128, 1024, 1024)]
+# whisper-small's self-attention (MHA, g = 1): its serving prefill, and its
+# decode step as the calibrate grid gives it (C = 32, one valid slot)
+WHISPER_FA = (4, 32, 12, 12, 64)                # (B, S, H, Hkv, D)
+WHISPER_DEC = (4, 12, 12, 64, 32, 1)            # (B, H, Hkv, D, C, nv)
+# bf16 q over an f32 cache, what a decode step with bf16 weights hands over:
+# llama3.2-1b's and whisper-small's steps in the calibrate grid
+MIXED_DEC = [(4, 32, 8, 64, 32, 1), WHISPER_DEC]
 SASS_OPS = ("HGMMA", "HMMA")
 SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:111"),
@@ -299,6 +321,34 @@ def decode_case(timer, gen, B, H, Hkv, D, C, n_valid, dtype, timed=False, mask=N
     return row, ok
 
 
+def mixed_decode_case(timer, gen, B, H, Hkv, D, C, n_valid):
+    """bf16 q over f32 k/v through ``kernels.ops`` (q widened exactly, the
+    f32 kernel, the output cast to bf16) against the plain version on the
+    same inputs, timed; the library call is SDPA on the widened q."""
+    from repro_torch.kernels import ops, ref
+    q = randn(gen, (B, 1, H, D), torch.bfloat16)
+    k, v = (randn(gen, (B, C, Hkv, D), torch.float32) for _ in range(2))
+    mask = (torch.arange(C, device="cuda")[None, :] < n_valid).expand(B, C).contiguous()
+    out = ops.decode_attention(q, k, v, mask)
+    want = ref.decode_attention_ref(q, k, v, mask)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    slots = int(mask.sum().item())
+    nbytes = 2 * 2 * B * H * D + 4 * 2 * slots * Hkv * D + B * C
+    b_ms, b_by = bound_ms(nbytes, 4.0 * H * D * slots, torch.float32)
+    q32 = q.float()
+    row = {"kernel": "decode_attention", "shape": [B, H, Hkv, D, C], "n_valid": [n_valid] * B,
+           "dtype": "bfloat16 q, float32 k/v", "max_abs_err": err,
+           "ms": timer.ms(lambda: ops.decode_attention(q, k, v, mask)),
+           "plain_ms": timer.ms(lambda: ref.decode_attention_ref(q, k, v, mask)),
+           "library_ms": timer.ms(lambda: sdpa(q32, k, v, attn_mask=mask[:, None, None, :])),
+           "bound_ms": b_ms, "bound_by": b_by}
+    row["share_of_bound"] = b_ms / row["ms"]
+    ok = (err < TOL[torch.bfloat16] and out.dtype == torch.bfloat16
+          and bool(torch.isfinite(out.float()).all()))
+    return row, ok
+
+
 def phase_kernels(timer) -> dict[str, dict]:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
@@ -309,7 +359,7 @@ def phase_kernels(timer) -> dict[str, dict]:
             rows.append(flash_case(timer, gen, shape, dtype))
         for B, H, Hkv, D, C, nv in DEC_SHAPES:
             rows.append(decode_case(timer, gen, B, H, Hkv, D, C, nv, dtype))
-        for shape in SLICE_FA + PREFILL_FA:
+        for shape in SLICE_FA + PREFILL_FA + [WHISPER_FA]:
             rows.append(flash_case(timer, gen, shape, dtype, timed=True))
         for shape in RAGGED_FA:
             rows.append(flash_case(timer, gen, shape, dtype))
@@ -318,7 +368,7 @@ def phase_kernels(timer) -> dict[str, dict]:
                                    timed=dtype == torch.float32))
         rows.append(flash_case(timer, gen, (1, 128, 4, 2, 64), dtype, causal=False))
         rows.append(decode_case(timer, gen, *SLICE_DEC, dtype, timed=True))
-        for shape in TIMED_DEC:
+        for shape in TIMED_DEC + [WHISPER_DEC]:
             rows.append(decode_case(timer, gen, *shape, dtype, timed=True))
         for name in DEC_MASKS:
             rows.append(decode_case(timer, gen, *DEC_MASK_SHAPE, None, dtype, mask=name))
@@ -327,6 +377,8 @@ def phase_kernels(timer) -> dict[str, dict]:
         rows.append(decode_case(timer, gen, *DEC_RAGGED_SHAPE, 999, dtype))
     rows.append(decode_case(timer, gen, 3, 8, 4, 64, 512, [37, 512, 256], torch.float32))
     rows.append(decode_case(timer, gen, 2, 8, 2, 64, 256, [0, 100], torch.float32))
+    for shape in MIXED_DEC:
+        rows.append(mixed_decode_case(timer, gen, *shape))
     for row, ok in rows:
         print("case " + json.dumps(row), flush=True)
         if not ok:
@@ -472,89 +524,104 @@ def stage1_spec(controller: str):
 
 
 def serve_live(sess, virtual: dict, tag: str, all_variants: bool) -> tuple[dict, dict]:
-    """``sess.serve()`` of a real stage1 session with the live stage's
-    executor recorded. Checks: every request served, the virtual-time
-    results equal ``virtual`` (the same spec with real=False), flash launches
-    = Σ n_layers over the executed batches, no decode launch, each variant
-    executed (``all_variants``), and the kernel path's logits against the
-    plain attention path on the first batch of each variant that ran and on
-    the largest batch. Returns the report and the launch counts."""
+    """``sess.serve()`` of a real session with every live stage's executor
+    recorded. Checks: every request served, the virtual-time results equal
+    ``virtual`` (the same spec with real=False), flash launches = Σ n_layers
+    over the executed batches of attention variants, no decode launch, every
+    stage executed and each variant of it (``all_variants``), and the kernel
+    path's logits against the plain attention path for each variant of each
+    stage (on its first batch, or on the stage's first batch where the
+    controller never chose it) and on the largest batch. Returns the report
+    and the launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.models import api as model_api
 
-    stages = sess.spec.pipeline.stages[0]
+    stages = sess.spec.pipeline.stages
     t0 = time.perf_counter()
-    server = sess.stage_servers()[0]
+    servers = sess.stage_servers()
     torch.cuda.synchronize()
-    print(f"{tag}: built {list(stages)} at full width in {time.perf_counter() - t0:.1f}s, "
+    print(f"{tag}: built {[list(s) for s in stages]} at full width in "
+          f"{time.perf_counter() - t0:.1f}s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card", flush=True)
-    batches = []                    # (variant, tokens, output tokens, wall s) per batch
-    execute = server.execute
+    batches = []                    # (stage, variant, tokens, output tokens, wall s)
 
-    def recorded(z, tokens):
-        t = time.perf_counter()
-        out = execute(z, tokens)
-        batches.append((int(z) % len(stages), tokens, out, time.perf_counter() - t))
-        return out
+    def recorder(i, execute):
+        def recorded(z, tokens):
+            t = time.perf_counter()
+            out = execute(z, tokens)
+            batches.append((i, int(z) % len(stages[i]), tokens, out, time.perf_counter() - t))
+            return out
+        return recorded
 
-    server.execute = recorded       # the executor Session.build_env attaches
+    for i, server in enumerate(servers):
+        server.execute = recorder(i, server.execute)   # the executors Session.build_env attaches
     intervals = []
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     rep = sess.serve(on_step=lambda env, cfg, info: intervals.append(
-        (env.runtime.now, int(cfg.z[0]), cfg.f[0], cfg.b[0], info["processed"])))
+        (env.runtime.now, tuple(int(z) for z in cfg.z), cfg.f, cfg.b, info["processed"])))
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
 
     s = rep["summary"]
     print(f"{tag}: {s['submitted']} requests submitted, {s['served']} served; "
-          f"variant per interval {[iv[1] for iv in intervals]} "
-          f"({', '.join(f'{stages[z]}' for z in range(len(stages)))}), "
+          f"variants per interval {[iv[1] for iv in intervals]} ({stages}), "
           f"{s['switches']} switches", flush=True)
     for t, z, f, b, served in intervals:
         print(f"{tag}: t={t:5.0f}s z={z} f={f} b={b} served={served}", flush=True)
-    ran = sorted({v for v, *_ in batches})
-    for z in range(len(stages)):
-        sizes = [len(tok) for v, tok, _, _ in batches if v == z]
-        check(bool(sizes) or not all_variants,
-              f"{tag}: variant {z} ({stages[z]}) never executed")
-        if sizes:
-            print(f"{tag}: {stages[z]}: {len(sizes)} batches, sizes {min(sizes)}-"
-                  f"{max(sizes)}, {sum(sizes)} requests", flush=True)
-    exec_s = sum(sec for *_, sec in batches)
+    for i, names in enumerate(stages):
+        check(any(st == i for st, *_ in batches), f"{tag}: stage {i} never executed")
+        for z, name in enumerate(names):
+            sizes = [len(tok) for st, v, tok, _, _ in batches if (st, v) == (i, z)]
+            check(bool(sizes) or not all_variants,
+                  f"{tag}: stage {i} variant {z} ({name}) never executed")
+            print(f"{tag}: stage {i} {name}: {len(sizes)} batches"
+                  + (f", sizes {min(sizes)}-{max(sizes)}, {sum(sizes)} requests" if sizes
+                     else " (never chosen)"), flush=True)
+    exec_s = sum(b[-1] for b in batches)
     print(f"{tag}: serve wall {wall:.3f}s, inside execute {exec_s:.3f}s "
           f"({exec_s / wall:.4f} of it); {len(batches) / wall:.2f} batches/s, "
-          f"{s['served'] / wall:.2f} req/s live through the stage; launches {counts}",
+          f"{s['served'] / wall:.2f} req/s live through the pipeline; launches {counts}",
           flush=True)
 
     check(s["served"] == s["submitted"] > 0,
           f"{tag}: {s['served']} of {s['submitted']} requests served")
     for key in ("summary", "rewards", "configs"):
         check(rep[key] == virtual[key], f"{tag}: {key} differs from the real=False run")
-    want = sum(server.variants[z].n_layers for z, *_ in batches)
+    want = sum(servers[i].variants[z].n_layers for i, z, *_ in batches
+               if servers[i].variants[z].family != "ssm")
     check(counts["flash_attention"] == want,
           f"{tag}: flash launches {counts['flash_attention']} != {want}")
     check(counts["decode_attention"] == 0, f"{tag}: decode kernel launched while serving")
 
-    firsts = [next(i for i, b in enumerate(batches) if b[0] == z) for z in ran]
-    largest = max(range(len(batches)), key=lambda i: len(batches[i][1]))
-    for i in dict.fromkeys(firsts + [largest]):
-        z, tokens, out, _ = batches[i]
-        cfg = server.variants[z]
-        batch = {"tokens": torch.as_tensor(tokens % cfg.vocab, device="cuda")}
+    cases = []                      # (stage, variant, batch index whose tokens feed it)
+    for i, names in enumerate(stages):
+        first_of_stage = next(k for k, b in enumerate(batches) if b[0] == i)
+        for z in range(len(names)):
+            ran = [k for k, b in enumerate(batches) if b[:2] == (i, z)]
+            cases.append((i, z, ran[0] if ran else first_of_stage))
+    largest = max(range(len(batches)), key=lambda k: len(batches[k][2]))
+    cases.append(batches[largest][:2] + (largest,))
+    for i, z, k in dict.fromkeys(cases):
+        _, zk, tokens, out, _ = batches[k]
+        server, cfg = servers[i], servers[i].variants[z]
+        batch = server._make_batch(tokens, cfg)
         with torch.inference_mode():
             lk, _ = model_api.forward(server.params[z], batch, cfg)
             with plain_attention():
                 lp, _ = model_api.forward(server.params[z], batch, cfg)
         check(bool(torch.isfinite(lk).all()), f"{tag}: {cfg.name}: non-finite logits")
         err = (lk - lp).abs().max().item()
-        same = float((lk.argmax(-1).cpu().numpy() == out).mean())
         agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean().item())
-        print(f"{tag}: batch {i} ({cfg.name}, {len(tokens)} requests) kernel vs plain "
-              f"attention logits max|diff| {err:.3e} (tol {LOGIT_TOL}), argmax agreement "
-              f"{agree:.4f}, served tokens reproduced {same:.4f}", flush=True)
+        line = (f"{tag}: stage {i} batch {k} ({cfg.name}, {len(tokens)} requests) kernel vs "
+                f"plain attention logits max|diff| {err:.3e} (tol {LOGIT_TOL}), argmax "
+                f"agreement {agree:.4f}")
+        if zk == z:
+            same = float((lk.argmax(-1).cpu().numpy() == out).mean())
+            line += f", served tokens reproduced {same:.4f}"
+            check(same == 1.0, f"{tag}: {cfg.name}: served tokens not reproduced")
+        print(line, flush=True)
         check(err < LOGIT_TOL, f"{tag}: {cfg.name}: kernel path logits off by {err}")
-        check(same == 1.0, f"{tag}: {cfg.name}: served tokens not reproduced")
     return rep, counts
 
 
@@ -586,7 +653,7 @@ def synced_ms(fn) -> float:
     return (time.perf_counter() - t) * 1e3
 
 
-def profiled(tag: str, fn):
+def profiled(tag: str, fn, phase: str = "opd"):
     """One call of ``fn`` (after a warm-up call) under torch.profiler: wall
     time, device kernel time and launches, the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
@@ -600,10 +667,13 @@ def profiled(tag: str, fn):
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     launches = sum(e.count for e in events)
-    print(f"opd: profile {tag}: wall {wall_ms:.3f} ms (profiler on), device kernels "
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
+    print(f"{phase}: profile {tag}: wall {wall_ms:.3f} ms (profiler on), device kernels "
           f"{busy_ms:.3f} ms in {launches} launches, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, {wall_ms * 1e3 / max(launches, 1):.1f} us of "
-          f"wall per launch", flush=True)
+          f"wall per launch; top: " + "; ".join(
+              f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms" for e in top),
+          flush=True)
 
 
 def to_cpu_opt(opt: dict) -> dict:
@@ -789,6 +859,101 @@ def phase_opd() -> dict:
     return counts
 
 
+def phase_calibrate() -> dict:
+    """Measured stage execution on the card: the calibration grid (serve2's
+    four archs at full width, bf16 and int8, b = 1..32, CUDA-graph replays
+    with the eager steps beside them), the graphs' logits against the eager
+    steps', then the whole serve2 loop live on the fitted table."""
+    from dataclasses import replace
+
+    from repro_torch import api
+    from repro_torch.cluster import calibration, executor
+    from repro_torch.kernels import ops
+    from repro_torch.launch import calibrate
+
+    ex = executor.StageExecutor("cuda", seq_len=32)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    payload = calibrate.run(ex, log=lambda m: print(m, flush=True))
+    grid_counts = ops.launch_counts()
+    print(f"calibrate: grid of {len(payload['rows'])} rows and its repeat pass in "
+          f"{time.perf_counter() - t0:.1f}s; launches {grid_counts} (eager steps and "
+          f"captures; a replay launches from the graph and counts nothing)", flush=True)
+    table = calibration.CalibrationTable.from_dict(payload["table"])
+    check(len(table.variants) == 8, f"calibrate: table has {len(table.variants)} variants")
+    check(payload["cache"]["hit_rate_repeat"] >= 0.9,
+          f"calibrate: hit_rate_repeat {payload['cache']['hit_rate_repeat']} < 0.9")
+    for row in payload["rows"]:
+        cfg = ex.arch_config(row["arch"])
+        want = 0 if cfg.family == "ssm" else cfg.n_layers
+        check(row["launches"]["decode_attention"] == want and
+              row["launches"]["flash_attention"] == 0,
+              f"calibrate: {row['arch']} b{row['batch']} captured launches {row['launches']}")
+        check(0 < row["graph_s"] < np.inf and 0 < row["eager_s"] < np.inf,
+              f"calibrate: {row['arch']} b{row['batch']} latencies {row}")
+    for name, v in sorted(payload["variants"].items()):
+        ratio = [e / g for e, g in zip(v["eager_s"], v["measured_s"], strict=True)]
+        print(f"calibrate: {name}: graph ms {[round(x * 1e3, 4) for x in v['measured_s']]}, "
+              f"eager ms {[round(x * 1e3, 4) for x in v['eager_s']]}, eager/graph "
+              f"{[round(r, 2) for r in ratio]}", flush=True)
+
+    # (b) the graph's logits against the eager step's, each arch's largest batch
+    for arch in calibrate.ARCHS:
+        for quant in calibrate.QUANTS:
+            entry, hit = ex.compiled_step(arch, max(calibrate.BATCHES), quant)
+            check(hit, f"calibrate: {arch}:{quant} b{max(calibrate.BATCHES)} not cached")
+            graph = entry.replay()[0].float().clone()
+            eager = entry.eager()[0].float()
+            err = (graph - eager).abs().max().item() / max(1.0, eager.abs().max().item())
+            print(f"calibrate: {arch}:{quant} b{max(calibrate.BATCHES)} graph vs eager "
+                  f"logits max rel diff {err:.3e} (tol {TOL[torch.bfloat16]}), finite "
+                  f"{bool(torch.isfinite(graph).all())}", flush=True)
+            check(bool(torch.isfinite(graph).all()) and err < TOL[torch.bfloat16],
+                  f"calibrate: {arch}:{quant} graph logits off the eager step's by {err}")
+    print(f"calibrate: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB over the grid", flush=True)
+    # where a step's time goes: device kernels and gaps in one replay, and
+    # in the same step run eagerly
+    for arch in calibrate.ARCHS:
+        for b in (min(calibrate.BATCHES), max(calibrate.BATCHES)):
+            entry, _ = ex.compiled_step(arch, b, "bf16")
+            profiled(f"{arch}:bf16 b{b} graph replay", entry.replay, "calibrate")
+            profiled(f"{arch}:bf16 b{b} eager step", entry.eager, "calibrate")
+    del ex, entry
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the whole serve2 loop live on the card's own physics
+    calibration.register_table("h100-serve2", table)
+    # the registered serve2 pipeline, both stages, on the measured table:
+    # stage1_spec's scenario under the capacity controller
+    spec = api.ExperimentSpec(
+        pipeline=replace(api.get_pipeline("serve2"), perf_source="calibrated",
+                         calibration="h100-serve2"),
+        scenario=replace(api.get_scenario("bursty"), seed=3, horizon=120),
+        controller=replace(api.get_controller("capacity"), seed=3),
+        backend="runtime", real=True)
+    pipe = spec.pipeline.build()
+    covered, total = calibration.coverage(pipe, table)
+    print(f"calibrate: table covers {covered}/{total} of serve2's variants", flush=True)
+    check(covered == total == 4, f"calibrate: coverage {covered}/{total}")
+    virtual = api.Session(replace(spec, real=False)).serve()
+    analytic = api.Session(replace(spec, real=False, pipeline=replace(
+        spec.pipeline, perf_source="analytic", calibration=None))).serve()
+    torch.cuda.reset_peak_memory_stats()
+    rep, loop_counts = serve_live(api.Session(spec, device="cuda"), virtual, "calibrate",
+                                  all_variants=False)
+    s, a = rep["summary"], analytic["summary"]
+    print(f"calibrate: calibrated (H100) vs analytic (TPU v5e) virtual run: p50 "
+          f"{s['p50']:.6f} vs {a['p50']:.6f} s, p99 {s['p99']:.6f} vs {a['p99']:.6f} s, "
+          f"mean cost {np.mean(rep['cost']):.4f} vs {np.mean(analytic['cost']):.4f}, mean "
+          f"batch {s['mean_batch_size']:.3f} vs {a['mean_batch_size']:.3f} (reported only)",
+          flush=True)
+    print(f"calibrate: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB over the live loop", flush=True)
+    return {k: grid_counts[k] + loop_counts[k] for k in grid_counts}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
@@ -825,11 +990,14 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     opd_counts = phase_opd()
+    gc.collect()
+    torch.cuda.empty_cache()
+    calibrate_counts = phase_calibrate()
 
     kernels = []
     for name in build.KERNELS:
         launches = (serve_counts[name] + decode_counts[name] + runtime_counts[name]
-                    + opd_counts[name])
+                    + opd_counts[name] + calibrate_counts[name])
         check(launches > 0, f"{name} never launched on the main path")
         row = summary[name]
         src, replaces = SOURCES[name]

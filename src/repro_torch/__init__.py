@@ -14,5 +14,9 @@ learning (``core.mdp``/``controller``/``expert``/``baselines``, ``cluster``,
 ``--pipeline`` mode), NumPy as in the reference, and the OPD agent
 (``core.features``/``policy``/``predictor``/``ppo``/``opd``, the vectorized
 analytic env ``core.vecenv``, ``nn.resnet``/``lstm``, ``train.optim``),
-which trains and decides on a torch device.
+which trains and decides on a torch device, measured stage execution and
+calibration (``timing``, ``cluster.executor``/``calibration``,
+``launch.calibrate``: decode steps captured in CUDA graphs, fitted into the
+perf model's ``(alpha, beta)``), and the audio and ssm families
+(``models.whisper``, ``models.xlstm_lm``, ``nn.xlstm``).
 """

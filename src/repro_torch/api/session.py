@@ -24,7 +24,7 @@ Not ported yet, and raising rather than running something else: training
 on the runtime twin (``train_backend="runtime"``, ROADMAP Queue 1 item 8),
 a scenario's forecaster and the proactive controllers (item 9), the fleet
 session (item 10), ``debug_checkify`` (item 13) and live stages of a family
-without model code (item 11).
+without model code (moe, vlm, hybrid: item 11 part B).
 """
 from __future__ import annotations
 
@@ -61,7 +61,7 @@ def build_servers(spec: ExperimentSpec, *, device="cuda", smoke: bool = False):
                 raise NotImplementedError(
                     f"pipeline {spec.pipeline.name!r} stage {i}: arch {name!r} "
                     f"(family {family!r}) has no model code in the port yet, so "
-                    "real=True cannot serve it (ROADMAP Queue 1 item 11, "
+                    "real=True cannot serve it (ROADMAP Queue 1 item 11 part B, "
                     "remaining model families)")
     return [StageServer(f"stage{i}",
                         [ARCHS[n].smoke() if smoke else ARCHS[n] for n in names],

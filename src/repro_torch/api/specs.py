@@ -90,9 +90,9 @@ class PipelineSpec:
     what every pre-calibration run used) or ``"calibrated"``, which rebinds
     the built pipeline onto measured ``(alpha, beta)`` from the calibration
     table named by ``calibration`` (a ``cluster.calibration.register_table``
-    name or JSON path; None = the committed ``stage_calibration`` baseline).
-    The port has no calibration yet: ``"calibrated"`` raises until ROADMAP
-    Queue 1 item 5 brings measured H100 coefficients.
+    name or JSON path). Unlike the reference, None names no table and
+    raises: the reference's default was measured on a CPU mesh, and
+    ``python -m repro_torch.launch.calibrate`` measures the card's own.
     """
     name: str
     stages: tuple[tuple[str, ...], ...]      # arch names per stage
@@ -116,9 +116,9 @@ class PipelineSpec:
         if self.perf_source == "analytic":
             return pipe
         if self.perf_source == "calibrated":
-            raise NotImplementedError(
-                "perf_source='calibrated' needs the measured calibration "
-                "table, not ported yet (ROADMAP Queue 1 item 5)")
+            from repro_torch.cluster.calibration import (calibrate_pipeline,
+                                                         resolve_table)
+            return calibrate_pipeline(pipe, resolve_table(self.calibration))
         raise ValueError(f"unknown perf_source {self.perf_source!r} "
                          "(one of: analytic, calibrated)")
 

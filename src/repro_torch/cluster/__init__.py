@@ -1,7 +1,8 @@
 """Cluster model of the port: topology and placement, the analytic perf
 model, workload traces, the monitor and the two MDP environments (NumPy,
-bit-identical to ``repro.cluster``). Measured execution and calibration
-come with ROADMAP Queue 1 item 5."""
+bit-identical to ``repro.cluster``), and measured execution
+(``cluster.executor``, on a torch device) with its calibration
+(``cluster.calibration``, NumPy)."""
 from repro_torch.cluster.topology import (ClusterTopology, Node, Placement,
                                           PlacementCursor)
 from repro_torch.cluster.workloads import make_trace, WORKLOADS

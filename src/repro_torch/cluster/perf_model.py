@@ -9,8 +9,9 @@ analysis, so the RL environment's physics and the dry-run cost model agree.
 The port keeps the reference's v5e constants unchanged, so that every
 ``ModelVariant`` equals the reference's bit for bit: the serving runtime's
 virtual time models a TPU v5e, not the H100 that runs the live executors.
-The H100's own ``(alpha, beta)`` will come from measured calibration
-(ROADMAP Queue 1 item 5), not from data-sheet constants.
+The H100's own ``(alpha, beta)`` come from measured calibration
+(``cluster/calibration.py``, ``PipelineSpec(perf_source="calibrated")``),
+not from data-sheet constants.
 """
 from __future__ import annotations
 

@@ -2,8 +2,8 @@
 defines CONFIG, the exact published configuration, and cites its source in
 the docstring. The configs are data: ``cluster.perf_model`` reads every
 arch's ``param_count()``/``active_param_count()`` to build a pipeline's
-variants. Only the dense family has model code so far; ``models.api``
-refuses the others (ROADMAP Queue 1 item 11)."""
+variants. The dense, audio and ssm families have model code so far;
+``models.api`` refuses the others (ROADMAP Queue 1 item 11 part B)."""
 from repro_torch.configs import (
     granite_moe_3b_a800m,
     granite_3_8b,

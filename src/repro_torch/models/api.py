@@ -1,4 +1,5 @@
-"""Family-dispatched model API (the dense family is ported so far).
+"""Family-dispatched model API (the dense, audio and ssm families are
+ported so far).
 
     init_model(seed, cfg, device=)            -> model (nn.Module)
     forward(model, batch, cfg, ...)           -> (logits, aux)
@@ -7,21 +8,22 @@
 """
 from __future__ import annotations
 
-from repro_torch.models import decoder
+from repro_torch.models import decoder, whisper, xlstm_lm
 from repro_torch.models.config import ArchConfig
 
 
-# families with model code in the port; the rest arrive with ROADMAP Queue 1
-# item 11 (remaining model families)
-PORTED_FAMILIES = ("dense",)
+# families with model code in the port; the rest (moe, vlm, hybrid) arrive
+# with ROADMAP Queue 1 item 11 part B (remaining model families)
+_MODULES = {"dense": decoder, "audio": whisper, "ssm": xlstm_lm}
+PORTED_FAMILIES = tuple(_MODULES)
 
 
 def _mod(cfg: ArchConfig):
     if cfg.family in PORTED_FAMILIES:
-        return decoder
+        return _MODULES[cfg.family]
     raise NotImplementedError(
         f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-        "Queue 1 item 11, remaining model families)")
+        "Queue 1 item 11 part B, remaining model families)")
 
 
 def init_model(seed: int, cfg: ArchConfig, **kw):

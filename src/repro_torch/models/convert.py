@@ -6,7 +6,8 @@ jax. Layer leaves are stacked on a leading [L, ...] axis there and are
 unstacked into the port's ``layers`` ModuleList here; a Python list of
 subtrees (the policy's ``heads``, a ResMLP's ``blocks``) fills a ModuleList
 entry by entry. Linear weights keep the reference's [in, out] layout, so no
-leaf is transposed.
+leaf is transposed. The same walk carries the dense, audio (whisper, layers
+stacked) and ssm (xLSTM, a list of unlike layers) families.
 """
 from __future__ import annotations
 
@@ -72,9 +73,15 @@ def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
     return model
 
 
-def cache_from_numpy(cache: dict, *, device="cpu") -> dict:
-    """Reference KV cache (``k``, ``v`` [L, B, C, kv, hd], ``pos`` [B]) as
-    NumPy arrays -> the port's cache dict of tensors on ``device``."""
-    return {"k": _as_tensor(cache["k"]).to(device),
-            "v": _as_tensor(cache["v"]).to(device),
-            "pos": torch.from_numpy(np.array(cache["pos"], dtype=np.int32)).to(device)}
+def cache_from_numpy(cache, *, device="cpu"):
+    """A reference cache as NumPy arrays -> the port's cache of tensors on
+    ``device``, with the same nesting: the dense family's ``k``/``v``
+    [L, B, C, kv, hd], whisper's ``ck``/``cv`` besides, the xLSTM's list of
+    per-layer state dicts, and ``pos`` [B] as int32."""
+    if isinstance(cache, dict):
+        return {k: (torch.from_numpy(np.array(v, dtype=np.int32)).to(device)
+                    if k == "pos" else cache_from_numpy(v, device=device))
+                for k, v in cache.items()}
+    if isinstance(cache, (list, tuple)):
+        return [cache_from_numpy(v, device=device) for v in cache]
+    return _as_tensor(cache).to(device)

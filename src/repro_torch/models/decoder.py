@@ -5,7 +5,7 @@ The reference stacks per-layer parameters on a leading [L, ...] axis and
 Python loop. The KV cache stays stacked, ``[L, B, C, kv, hd]`` plus
 ``pos [B]``, as the reference's ``init_cache`` lays it out. The MoE
 interleave and the VLM prefix come with the remaining model families
-(ROADMAP Queue 1 item 11).
+(ROADMAP Queue 1 item 11 part B).
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ from repro_torch import nn as rnn
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 
-_LATER = "is not ported yet (ROADMAP Queue 1 item 11, remaining model families)"
+_LATER = ("is not ported yet (ROADMAP Queue 1 item 11 part B, remaining model "
+          "families)")
 
 
 def _norm_fns(cfg: ArchConfig):
@@ -56,6 +57,8 @@ class Layer(nn.Module):
 class DecoderLM(nn.Module):
     """Parameters of one decoder-only LM under the reference's names:
     ``embed``, ``layers`` (one ``Layer`` per depth), ``ln_f``, ``lm_head``."""
+
+    stacked_layers = True         # the reference stacks them on a leading [L, ...] axis
 
     def __init__(self, cfg: ArchConfig, *, device, generator):
         super().__init__()

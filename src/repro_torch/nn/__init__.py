@@ -11,6 +11,11 @@ from repro_torch.nn.rope import rope_frequencies, apply_rope
 from repro_torch.nn.mlp import MLP, mlp
 from repro_torch.nn.attention import (
     Attention, attention_prefill, attention_decode, make_kv_cache,
+    init_cross_attention, cross_attention,
+)
+from repro_torch.nn.xlstm import (
+    MLSTM, mlstm_parallel, mlstm_chunkwise, mlstm_decode, make_mlstm_state,
+    SLSTM, slstm_scan, slstm_decode, make_slstm_state,
 )
 from repro_torch.nn.lstm import LSTM, lstm_scan
 from repro_torch.nn.resnet import ResBlock, resblock, ResMLP, res_mlp

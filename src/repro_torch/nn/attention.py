@@ -172,3 +172,23 @@ def attention_decode(params: Attention, x, cache, *, n_heads: int, n_kv: int,
     out = out.reshape(B, 1, n_heads * head_dim)
     new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
     return linear(params.wo, out), new_cache
+
+
+def init_cross_attention(dim: int, n_heads: int, head_dim: int, *,
+                         dtype=torch.float32, device="cpu",
+                         generator: torch.Generator | None = None) -> Attention:
+    return Attention(dim, n_heads, n_heads, head_dim, dtype=dtype, qkv_bias=True,
+                     device=device, generator=generator)
+
+
+def cross_attention(params: Attention, x, enc, *, n_heads: int, head_dim: int):
+    """x [B,S,d] attends to encoder states enc [B,T,d] (no mask, no rope).
+    Plain ``_sdpa`` on every device, as in the reference."""
+    B, S, _ = x.shape
+    T = enc.shape[1]
+    q = linear(params.wq, x).reshape(B, S, n_heads, head_dim)
+    k = linear(params.wk, enc).reshape(B, T, n_heads, head_dim)
+    v = linear(params.wv, enc).reshape(B, T, n_heads, head_dim)
+    mask = torch.ones((1, 1, 1, S, T), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, k, v, mask).reshape(B, S, n_heads * head_dim)
+    return linear(params.wo, out)

@@ -50,10 +50,19 @@ class StageServer:
             self.replicas = int(replicas)
 
     def _make_batch(self, tokens: np.ndarray, cfg: ArchConfig) -> dict:
-        # vlm/audio inputs never reach here: api.init_model refuses those
-        # families when the stage is built (they come with ROADMAP Queue 1
-        # item 11)
-        return {"tokens": torch.as_tensor(tokens % cfg.vocab, device=self.device)}
+        """Tokens on the device, plus the audio family's stub encoder states
+        [B, enc_len, d], normal with std 0.02 from a generator seeded 1, as
+        the reference draws them from ``PRNGKey(1)`` (the bits differ). vlm
+        inputs never reach here: api.init_model refuses that family when the
+        stage is built (ROADMAP Queue 1 item 11 part B)."""
+        batch = {"tokens": torch.as_tensor(tokens % cfg.vocab, device=self.device)}
+        if cfg.family == "audio":
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(1)
+            batch["enc_states"] = torch.randn(
+                (tokens.shape[0], cfg.enc_len, cfg.d_model), generator=gen,
+                device=self.device, dtype=torch.float32) * 0.02
+        return batch
 
     def execute(self, z: int, tokens: np.ndarray) -> np.ndarray:
         """Run variant ``z`` on tokens [B, S] -> output tokens [B, S] int32,

@@ -218,7 +218,9 @@ def test_training_a_learned_controller_raises():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # perf_source="calibrated" is ported; with no table named it raises
+    # rather than load the reference's CPU-mesh table
+    with pytest.raises(KeyError, match="no default table"):
         api.replace(api.get_pipeline("serve2"), perf_source="calibrated").build()
     with pytest.raises(ValueError, match="unknown perf_source"):
         api.replace(api.get_pipeline("serve2"), perf_source="nope").build()
@@ -233,13 +235,18 @@ def test_unported_options_raise():
 
 
 def test_real_run_of_unported_family_names_the_stage():
-    """serve2's stage 0 (whisper-small, xlstm-125m) has no model code yet: a
-    real run raises before building anything, naming stage 0 and item 11."""
-    exp = api.replace(experiment(api, "greedy", "runtime", pipeline="serve2"), real=True)
+    """serve3's stage 2 (granite-moe, zamba2) has no model code yet: a real
+    run raises before building anything, naming the stage and item 11 part
+    B. serve2's families (audio, ssm) are ported and build."""
+    exp = api.replace(experiment(api, "greedy", "runtime", pipeline="serve3"), real=True)
     sess = api.Session(exp, device="cpu", smoke=True)
     with pytest.raises(NotImplementedError,
-                       match=r"stage 0: arch 'whisper-small' .*item 11"):
+                       match=r"stage 2: arch 'granite-moe-3b-a800m' .*item 11 part B"):
         sess.serve()
     assert sess.servers is None
-    with pytest.raises(NotImplementedError, match="stage 0"):
+    with pytest.raises(NotImplementedError, match="stage 2"):
         api.build_executors(exp, device="cpu", smoke=True)
+    serve2 = api.replace(experiment(api, "greedy", "runtime", pipeline="serve2"), real=True)
+    servers = api.build_servers(serve2, device="cpu", smoke=True)
+    assert [[c.family for c in s.variants] for s in servers] == [["audio", "ssm"],
+                                                                  ["dense", "dense"]]

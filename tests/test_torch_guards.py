@@ -31,7 +31,9 @@ def test_port_never_imports_jax_or_reference(path):
 
 def test_importing_port_entry_points_leaves_jax_unloaded():
     code = ("import sys, repro_torch.serving.engine, repro_torch.launch.serve, "
-            "repro_torch.api, repro_torch.cluster.env; "
+            "repro_torch.api, repro_torch.cluster.env, repro_torch.cluster.executor, "
+            "repro_torch.cluster.calibration, repro_torch.models.whisper, "
+            "repro_torch.models.xlstm_lm, repro_torch.launch.calibrate; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; print(bad); sys.exit(bool(bad))")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
