@@ -47,15 +47,19 @@ Phases (any failure exits non-zero):
            starcoder2-3b at full width, bf16 and int8 weights, b = 1..32): per
            row the CUDA-graph replay and eager step latencies, the launches of
            one captured step, flops, bytes, bound and share; the fitted table
-           and hit_rate_repeat >= 0.9; the graphs' logits against the eager
-           steps' at b = 32; then Session.serve of the registered serve2
-           pipeline, both stages live, with perf_source="calibrated" on that
-           table (capacity controller, bursty, seed 3, 120 s): the runtime
-           phase's checks on every stage, and the calibrated virtual p50/p99
-           and cost beside the analytic (TPU v5e) run's
+           and hit_rate_repeat >= 0.9; every captured step's logits against
+           the eager step's and the plain attention path's, at the grid's one
+           valid slot and again over random caches with several valid slots;
+           then Session.serve of the registered serve2 pipeline, both stages
+           live, with perf_source="calibrated" on that table (capacity
+           controller, bursty, seed 3, 120 s): the runtime phase's checks on
+           every stage, and the calibrated virtual p50/p99 and cost beside
+           the analytic (TPU v5e) run's; then the same spec for 30 s under
+           the random controller, which executes every variant of both stages
 The kernels phase also holds whisper-small's g = 1 shapes (flash B4 S32
 H12 Hkv12 D64, decode B4 H12 C32) in both dtypes and bf16 q over an f32
-cache (llama3.2-1b's and whisper-small's decode steps), all timed.
+cache (llama3.2-1b's, starcoder2-3b's and whisper-small's decode steps),
+all timed, the decode cases at 1, 9, 17 and 32 valid slots per row.
 The last two lines are the kernel summary and the device line, as JSON.
 Imports only torch, numpy and the port (never jax or the JAX package).
 """
@@ -112,13 +116,17 @@ SLICE_DEC = (4, 32, 8, 64, 1024, 32)            # llama3.2-1b decode, last step
 # with 32 and with 1024 valid slots
 TIMED_DEC = [(4, 32, 8, 64, 1024, 1024), (4, 24, 2, 128, 1024, 32),
              (4, 24, 2, 128, 1024, 1024)]
+# valid slots per row of the calibrate grid's decode shapes (C = 32): the
+# grid's own one slot, where softmax is 1 and q does not change the output,
+# and several, where it does
+GRID_NV = [1, 9, 17, 32]
 # whisper-small's self-attention (MHA, g = 1): its serving prefill, and its
-# decode step as the calibrate grid gives it (C = 32, one valid slot)
+# decode step at the calibrate grid's cache
 WHISPER_FA = (4, 32, 12, 12, 64)                # (B, S, H, Hkv, D)
-WHISPER_DEC = (4, 12, 12, 64, 32, 1)            # (B, H, Hkv, D, C, nv)
+WHISPER_DEC = (4, 12, 12, 64, 32, GRID_NV)      # (B, H, Hkv, D, C, nv)
 # bf16 q over an f32 cache, what a decode step with bf16 weights hands over:
-# llama3.2-1b's and whisper-small's steps in the calibrate grid
-MIXED_DEC = [(4, 32, 8, 64, 32, 1), WHISPER_DEC]
+# llama3.2-1b's, starcoder2-3b's and whisper-small's steps in the calibrate grid
+MIXED_DEC = [(4, 32, 8, 64, 32, GRID_NV), (4, 24, 2, 128, 32, GRID_NV), WHISPER_DEC]
 SASS_OPS = ("HGMMA", "HMMA")
 SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:111"),
@@ -328,7 +336,8 @@ def mixed_decode_case(timer, gen, B, H, Hkv, D, C, n_valid):
     from repro_torch.kernels import ops, ref
     q = randn(gen, (B, 1, H, D), torch.bfloat16)
     k, v = (randn(gen, (B, C, Hkv, D), torch.float32) for _ in range(2))
-    mask = (torch.arange(C, device="cuda")[None, :] < n_valid).expand(B, C).contiguous()
+    nv = torch.as_tensor(n_valid, device="cuda").reshape(-1, 1)
+    mask = (torch.arange(C, device="cuda")[None, :] < nv).expand(B, C).contiguous()
     out = ops.decode_attention(q, k, v, mask)
     want = ref.decode_attention_ref(q, k, v, mask)
     torch.cuda.synchronize()
@@ -337,8 +346,9 @@ def mixed_decode_case(timer, gen, B, H, Hkv, D, C, n_valid):
     nbytes = 2 * 2 * B * H * D + 4 * 2 * slots * Hkv * D + B * C
     b_ms, b_by = bound_ms(nbytes, 4.0 * H * D * slots, torch.float32)
     q32 = q.float()
-    row = {"kernel": "decode_attention", "shape": [B, H, Hkv, D, C], "n_valid": [n_valid] * B,
-           "dtype": "bfloat16 q, float32 k/v", "max_abs_err": err,
+    row = {"kernel": "decode_attention", "shape": [B, H, Hkv, D, C],
+           "n_valid": mask.sum(1).tolist(), "dtype": "bfloat16 q, float32 k/v",
+           "max_abs_err": err,
            "ms": timer.ms(lambda: ops.decode_attention(q, k, v, mask)),
            "plain_ms": timer.ms(lambda: ref.decode_attention_ref(q, k, v, mask)),
            "library_ms": timer.ms(lambda: sdpa(q32, k, v, attn_mask=mask[:, None, None, :])),
@@ -859,11 +869,62 @@ def phase_opd() -> dict:
     return counts
 
 
+def fill_cache(cache: dict, gen) -> None:
+    """Random self-attention KV in place, and a different number of valid
+    slots per row (17, 22, 27, 32, 5, ... of C = 32): the step's attention
+    then depends on q, which it does not over the grid's one valid slot."""
+    C = cache["k"].shape[2]                          # [L, B, C, kv, hd]
+    for name in ("k", "v"):
+        t = cache[name]
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype))
+    cache["pos"].copy_((torch.arange(len(cache["pos"]), device="cuda") * 5 + 16) % C)
+
+
+def graph_checks(ex) -> None:
+    """Every captured step of the grid, replayed, against the same step run
+    eagerly (the same kernels: equal) and run eagerly on the plain attention
+    path (the kernels against their plain versions inside full-depth bf16
+    and int8 steps, within bf16 rounding: TOL[bf16] of max(1, max |logit|)).
+    First at the grid's own state, one valid slot per row; then with
+    random caches and several valid slots (fill_cache), attention archs
+    only. Rewrites the entries' caches: run it last."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    tol = TOL[torch.bfloat16]
+    worst: dict = {}
+    for key, entry in ex.cache.entries.items():
+        for state in ("grid", "filled"):
+            if state == "filled":
+                if "k" not in entry.cache:
+                    continue                         # xLSTM: no attention cache
+                fill_cache(entry.cache, gen)
+            graph = entry.replay()[0].float().clone()
+            eager = entry.eager()[0].float()
+            with plain_attention():
+                plain = entry.eager()[0].float()
+            scale = max(1.0, plain.abs().max().item())
+            errs = ((graph - eager).abs().max().item() / scale,
+                    (graph - plain).abs().max().item() / scale)
+            tag = f"{key.arch}:{key.quant} b{key.batch} {state}"
+            check(bool(torch.isfinite(graph).all()), f"calibrate: {tag}: non-finite logits")
+            check(errs[0] < tol and errs[1] < tol,
+                  f"calibrate: {tag}: graph logits off the eager step's by {errs[0]}, "
+                  f"off the plain attention path's by {errs[1]}")
+            w = worst.setdefault((key.arch, key.quant, state), [0.0, 0.0, []])
+            w[0], w[1] = max(w[0], errs[0]), max(w[1], errs[1])
+            w[2].append(key.batch)
+    for (arch, quant, state), (e_eager, e_plain, batches) in worst.items():
+        print(f"calibrate: {arch}:{quant} {state} state, b = {sorted(batches)}: graph vs "
+              f"eager logits max rel diff {e_eager:.3e}, graph vs plain attention path "
+              f"{e_plain:.3e} (tol {tol}), all finite", flush=True)
+
+
 def phase_calibrate() -> dict:
     """Measured stage execution on the card: the calibration grid (serve2's
     four archs at full width, bf16 and int8, b = 1..32, CUDA-graph replays
     with the eager steps beside them), the graphs' logits against the eager
-    steps', then the whole serve2 loop live on the fitted table."""
+    steps' and the plain attention path's, then the whole serve2 loop live
+    on the fitted table, under the capacity and the random controller."""
     from dataclasses import replace
 
     from repro_torch import api
@@ -897,19 +958,6 @@ def phase_calibrate() -> dict:
               f"eager ms {[round(x * 1e3, 4) for x in v['eager_s']]}, eager/graph "
               f"{[round(r, 2) for r in ratio]}", flush=True)
 
-    # (b) the graph's logits against the eager step's, each arch's largest batch
-    for arch in calibrate.ARCHS:
-        for quant in calibrate.QUANTS:
-            entry, hit = ex.compiled_step(arch, max(calibrate.BATCHES), quant)
-            check(hit, f"calibrate: {arch}:{quant} b{max(calibrate.BATCHES)} not cached")
-            graph = entry.replay()[0].float().clone()
-            eager = entry.eager()[0].float()
-            err = (graph - eager).abs().max().item() / max(1.0, eager.abs().max().item())
-            print(f"calibrate: {arch}:{quant} b{max(calibrate.BATCHES)} graph vs eager "
-                  f"logits max rel diff {err:.3e} (tol {TOL[torch.bfloat16]}), finite "
-                  f"{bool(torch.isfinite(graph).all())}", flush=True)
-            check(bool(torch.isfinite(graph).all()) and err < TOL[torch.bfloat16],
-                  f"calibrate: {arch}:{quant} graph logits off the eager step's by {err}")
     print(f"calibrate: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB over the grid", flush=True)
     # where a step's time goes: device kernels and gaps in one replay, and
@@ -919,6 +967,7 @@ def phase_calibrate() -> dict:
             entry, _ = ex.compiled_step(arch, b, "bf16")
             profiled(f"{arch}:bf16 b{b} graph replay", entry.replay, "calibrate")
             profiled(f"{arch}:bf16 b{b} eager step", entry.eager, "calibrate")
+    graph_checks(ex)
     del ex, entry
     gc.collect()
     torch.cuda.empty_cache()
@@ -951,7 +1000,20 @@ def phase_calibrate() -> dict:
           flush=True)
     print(f"calibrate: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB over the live loop", flush=True)
-    return {k: grid_counts[k] + loop_counts[k] for k in grid_counts}
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the capacity controller keeps one variant per stage on this table, so
+    # the same calibrated spec again, 30 s under the random controller (seed
+    # 0, as tests/test_torch_families.py serves serve2), which executes
+    # every variant of both stages
+    cycle = replace(spec, scenario=replace(spec.scenario, horizon=30),
+                    controller=replace(api.get_controller("random"), seed=0))
+    virtual = api.Session(replace(cycle, real=False)).serve()
+    _, cycle_counts = serve_live(api.Session(cycle, device="cuda"), virtual,
+                                 "calibrate-random", all_variants=True)
+    return {k: grid_counts[k] + loop_counts[k] + cycle_counts[k] for k in grid_counts}
 
 
 def main():

@@ -47,7 +47,6 @@ from repro_torch.models.config import ArchConfig, InputShape
 from repro_torch.nn.linear import Embedding
 from repro_torch.timing import time_fn
 
-BACKENDS = ("reference", "flash")     # plain attention | kernels (CPU choice only)
 QUANT_BITS = {"int8": 8, "int4": 4}
 CAPTURE_WARMUP = 2                    # eager steps on a side stream before capture
 
@@ -93,7 +92,6 @@ class ExecKey:
     arch: str
     batch: int
     quant: str
-    backend: str
     device: str
     seq_len: int
 
@@ -155,7 +153,8 @@ class StageTiming:
     arch: str
     batch: int
     quant: str
-    backend: str
+    backend: str              # "reference" always: attention takes the kernels on a
+                              # CUDA tensor and the plain path on the CPU
     device_class: str
     latency_s: float          # min-of-k graph replay (eager step on the CPU)
     compile_s: float          # warm-up + capture; 0.0 on a cache hit
@@ -184,11 +183,12 @@ def _nbytes(t: torch.Tensor) -> int:
 
 def step_bytes(model: torch.nn.Module, cache: dict, batch: int, logits) -> float:
     """Bytes one decode step must move, each read once and each write once:
-    every parameter (only ``batch`` rows of an embedding table), the whole
-    cache read, the new KV slot of each layer written (``k``/``v``
-    [L, B, C, kv, hd]) or the whole recurrent state written (``states``),
-    and the logits written. Whisper's cross-attention KV (``ck``/``cv``) is
-    read only."""
+    every parameter (only ``batch`` rows of an embedding table); of the
+    self-attention KV (``k``/``v`` [L, B, C, kv, hd]) the valid slots read
+    (``min(pos + 1, C)`` per row: the decode kernel skips masked tiles) and
+    the new slot written; the whole recurrent state (``states``) read and
+    written; whisper's cross-attention KV (``ck``/``cv``) read whole; and
+    the logits written."""
     tables = [m.e for m in model.modules() if isinstance(m, Embedding)]
     ids = {id(e) for e in tables}
     total = sum(_nbytes(p) for p in model.parameters() if id(p) not in ids)
@@ -197,11 +197,12 @@ def step_bytes(model: torch.nn.Module, cache: dict, batch: int, logits) -> float
         if key == "pos":
             continue
         for t in _tensors(val):
-            total += _nbytes(t)
             if key in ("k", "v"):
-                total += _nbytes(t) // t.shape[2]     # one slot of C
-            elif key == "states":
-                total += _nbytes(t)
+                slot = _nbytes(t) // (t.shape[1] * t.shape[2])     # one row's slot
+                valid = int(torch.clamp(cache["pos"] + 1, max=t.shape[2]).sum())
+                total += (valid + t.shape[1]) * slot
+            else:
+                total += _nbytes(t) * (2 if key == "states" else 1)
     return float(total + _nbytes(logits))
 
 
@@ -229,7 +230,7 @@ class StageExecutor:
         self.smoke = smoke
         self.seed = seed
         self.cache = cache if cache is not None else ExecutableCache()
-        self._params: dict = {}       # (arch, quant, backend) -> quantised model
+        self._params: dict = {}       # (arch, quant) -> quantised model
         self._pools: dict = {}        # arch -> graph memory pool
 
     # ----------------------------------------------------------- identity --
@@ -248,26 +249,21 @@ class StageExecutor:
                     "power_limit": power_limit()}
         return {"device_name": "cpu", "power_limit": "not measured"}
 
-    def key_for(self, arch: str, batch: int, quant: str = "bf16",
-                backend: str = "reference") -> ExecKey:
-        return ExecKey(arch=arch, batch=int(batch), quant=quant, backend=backend,
+    def key_for(self, arch: str, batch: int, quant: str = "bf16") -> ExecKey:
+        return ExecKey(arch=arch, batch=int(batch), quant=quant,
                        device=str(self.device), seq_len=self.seq_len)
 
     # ------------------------------------------------------------- builds --
 
-    def arch_config(self, arch: str, backend: str = "reference") -> ArchConfig:
-        if backend not in BACKENDS:
-            raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    def arch_config(self, arch: str) -> ArchConfig:
         cfg = ARCHS[arch]
-        if self.smoke:
-            cfg = cfg.smoke()
-        return cfg.replace(use_flash=(backend == "flash"))
+        return cfg.smoke() if self.smoke else cfg
 
-    def params_for(self, arch: str, quant: str = "bf16", backend: str = "reference"):
+    def params_for(self, arch: str, quant: str = "bf16"):
         """Init once and quantise (cached: the weights are batch-independent)."""
-        pkey = (arch, quant, backend)
+        pkey = (arch, quant)
         if pkey not in self._params:
-            cfg = self.arch_config(arch, backend)
+            cfg = self.arch_config(arch)
             model = api.init_model(self.seed + len(self._params), cfg, device=self.device)
             self._params[pkey] = quantize_params(model, quant)
         return self._params[pkey]
@@ -301,17 +297,17 @@ class StageExecutor:
         entry.graph, entry.out = graph, out
         entry.launches = {k: after[k] - before[k] for k in after}
 
-    def compiled_step(self, arch: str, batch: int, quant: str = "bf16",
-                      backend: str = "reference") -> tuple[_Entry, bool]:
+    def compiled_step(self, arch: str, batch: int,
+                      quant: str = "bf16") -> tuple[_Entry, bool]:
         """-> (entry, was_hit): the captured serving step for one
         configuration with its static inputs."""
-        key = self.key_for(arch, batch, quant, backend)
+        key = self.key_for(arch, batch, quant)
 
         def build() -> _Entry:
-            cfg = self.arch_config(arch, backend)
+            cfg = self.arch_config(arch)
             shape = InputShape(name=f"serve_b{batch}", seq_len=self.seq_len,
                                global_batch=batch, kind="decode")
-            model = self.params_for(arch, quant, backend)
+            model = self.params_for(arch, quant)
             batch_in, cache_in = self._inputs(cfg, shape)
             entry = _Entry(cfg=cfg, model=model, step=steps.make_serve_step(cfg, shape),
                            batch=batch_in, cache=cache_in, compile_s=0.0)
@@ -343,30 +339,28 @@ class StageExecutor:
                           "bytes": step_bytes(entry.model, entry.cache, B, logits)}
         return entry.cost
 
-    def measure(self, arch: str, batch: int, quant: str = "bf16",
-                backend: str = "reference", *, reps: int = 5,
+    def measure(self, arch: str, batch: int, quant: str = "bf16", *, reps: int = 5,
                 warmup: int = 1) -> StageTiming:
         """Min-of-``reps`` measured step latency for one configuration: the
         graph replay on a CUDA device (the eager step beside it), the eager
         step on the CPU. Capture happens outside the timed region (cached);
         each timed pass synchronises the device inside the clock."""
-        entry, was_hit = self.compiled_step(arch, batch, quant, backend)
+        entry, was_hit = self.compiled_step(arch, batch, quant)
         replays0 = entry.replays
         eager = time_fn(entry.eager, reps=reps, warmup=warmup, device=self.device)
         latency = (time_fn(entry.replay, reps=reps, warmup=warmup, device=self.device)
                    if entry.graph is not None else eager)
         cost = self.cost(entry)
         return StageTiming(
-            arch=arch, batch=int(batch), quant=quant, backend=backend,
+            arch=arch, batch=int(batch), quant=quant, backend="reference",
             device_class=self.device_class, latency_s=latency.best,
             compile_s=0.0 if was_hit else entry.compile_s, cache_hit=was_hit,
             flops=cost["flops"], bytes=cost["bytes"], eager_latency_s=eager.best,
             launches=dict(entry.launches), replays=entry.replays - replays0)
 
-    def measure_curve(self, arch: str, batches, quant: str = "bf16",
-                      backend: str = "reference", *, reps: int = 5,
+    def measure_curve(self, arch: str, batches, quant: str = "bf16", *, reps: int = 5,
                       warmup: int = 1) -> list[StageTiming]:
         """The variant's measured ``latency(b)`` curve across ``batches`` —
         the calibration fit's input."""
-        return [self.measure(arch, b, quant, backend, reps=reps, warmup=warmup)
+        return [self.measure(arch, b, quant, reps=reps, warmup=warmup)
                 for b in batches]

@@ -324,7 +324,7 @@ def test_executor_cache_second_measure_builds_nothing():
     assert entry.graph is None and t1.latency_s == t1.eager_latency_s > 0.0
     assert t1.device_class == ex.device_class == "cpu1" and t1.replays == 0
     assert t1.flops > 0.0 and t1.bytes > 0.0
-    assert len(ex._params) == 1      # weights built once per (arch, quant, backend)
+    assert len(ex._params) == 1      # weights built once per (arch, quant)
 
 
 def test_executor_flops_and_bytes_by_formula():
@@ -341,9 +341,10 @@ def test_executor_flops_and_bytes_by_formula():
                               if ".g" in n or n.endswith(".b")))
     attn = cfg.n_layers * 4.0 * 2 * cfg.n_heads * 8 * cfg.head_dim
     assert t.flops == dense + attn
-    kv = 2 * cfg.n_layers * 2 * 8 * cfg.n_kv * cfg.head_dim * 4
-    slot = kv // 8
-    want = 2 * w + 2 * emb.shape[1] * 2 + kv + slot + 2 * cfg.vocab * 2
+    # k and v of every layer, one slot of each of the 2 rows in f32: the one
+    # valid slot (pos = 0) read, the new slot written
+    slot = 2 * cfg.n_layers * 2 * cfg.n_kv * cfg.head_dim * 4
+    want = 2 * w + 2 * emb.shape[1] * 2 + slot + slot + 2 * cfg.vocab * 2
     assert t.bytes == want
 
 
