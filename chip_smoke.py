@@ -41,6 +41,20 @@ Phases (any failure exits non-zero):
            real=True under the trained policy (the runtime phase's checks,
            decision times d_t) and one epoch of the LSTM load predictor
            (predict_batch card vs CPU)
+  forecast the registered lstm-multi and mlstm-multi forecasters trained on
+           the card through Session.build_forecaster (serve2, bursty at
+           25 req/s, seed 3): MSE per epoch, training wall time, SMAPE and
+           pinball per horizon on held-out traces, forecast_batch and one
+           training step held against a CPU copy, a second training to
+           report whether the card repeats it; one forecaster call's
+           synchronised time; Session.serve of the whole serve2 pipeline
+           live under proactive-capacity with lstm-multi on the card (f32,
+           analytic perf model, 120 s): the runtime phase's checks,
+           prewarms > 0, d_t; the proactive OPD controller trained on the
+           card (2 episodes, 4 envs) and served 120 s in virtual time; the
+           registered fleet-3tenant-hetero and a copy whose interactive
+           tenant runs proactive-capacity with lstm-multi, offered = served
+           + shed for every tenant
   calibrate
            measured stage execution: the StageExecutor grid of
            repro_torch.launch.calibrate (whisper-small, xlstm-125m, llama3.2-1b,
@@ -869,6 +883,213 @@ def phase_opd() -> dict:
     return counts
 
 
+FORECASTERS = ("lstm-multi", "mlstm-multi")
+
+
+def forecast_spec(predictor: str | None, controller: str = "proactive-capacity",
+                  real: bool = True):
+    """The registered serve2 pipeline (both stages, f32 weights, the
+    analytic perf model) under bursty arrivals at 25 req/s, seed 3, 120 s,
+    with ``predictor`` attached and ``controller`` (seed 3) in the loop."""
+    from dataclasses import replace
+
+    from repro_torch import api
+    return api.ExperimentSpec(
+        pipeline=api.get_pipeline("serve2"),
+        scenario=replace(api.get_scenario("bursty"), rate=25.0, seed=3, horizon=120,
+                         predictor=predictor),
+        controller=replace(api.get_controller(controller), seed=3),
+        backend="runtime", real=real)
+
+
+def held_out_traces(scen, ps, n: int = 2) -> list[np.ndarray]:
+    """Traces the forecaster never trained on: the next ``n`` episodes of
+    the scenario's ``train_trace``, Poisson-drawn as Session.build_forecaster
+    draws its own."""
+    out = []
+    for ep in range(ps.train_episodes, ps.train_episodes + n):
+        rng = np.random.default_rng(scen.seed + 104729 * (ep + 1))
+        out.append(rng.poisson(np.maximum(scen.train_trace(ep), 0.0)).astype(np.float32))
+    return out
+
+
+def check_forecaster(name: str, fn, scen) -> None:
+    """One trained forecaster: SMAPE and pinball per horizon on held-out
+    traces, ``forecast_batch`` on the card against a CPU copy, and one
+    training step from the same params and batch on both."""
+    import copy
+
+    from repro_torch import api
+    from repro_torch.core import forecast
+    from repro_torch.train import adamw_init
+
+    ps = api.get_predictor(name)
+    params = fn.params
+    check(all(p.device.type == "cuda" for p in params.parameters()),
+          f"forecast: {name} parameters not on the card")
+    held = held_out_traces(scen, ps)
+    kw = dict(backbone=ps.backbone, scale=fn.scale, horizons=ps.horizons,
+              history=ps.history, n_heads=ps.n_heads, channel_scales=fn.channel_scales)
+    smape = forecast.smape_horizons(params, held, **kw)
+    pinball = forecast.pinball_horizons(params, held, **kw)
+    print(f"forecast: {name} on held-out traces (2 x {len(held[0])} s, scale "
+          f"{fn.scale}): SMAPE % per horizon "
+          + ", ".join(f"{h}s {v:.3f}" for h, v in smape.items())
+          + "; pinball(q=0.9) per horizon "
+          + ", ".join(f"{h}s {v:.4f}" for h, v in pinball.items()), flush=True)
+    check(all(np.isfinite(list(smape.values()) + list(pinball.values()))),
+          f"forecast: {name} non-finite SMAPE or pinball")
+
+    X, y, _ = forecast.make_forecast_dataset(held, history=ps.history, horizons=ps.horizons,
+                                             scale=fn.scale,
+                                             channel_scales=fn.channel_scales)
+    xb = torch.as_tensor(X[:64])
+    cpu = copy.deepcopy(params).cpu()
+    with torch.no_grad():
+        g = forecast.forecast_batch(params, xb.cuda(), backbone=ps.backbone,
+                                    n_heads=ps.n_heads)
+        c = forecast.forecast_batch(cpu, xb, backbone=ps.backbone, n_heads=ps.n_heads)
+    b_err = rel_err(c, g)
+    yb = torch.as_tensor(y[:64])
+    g_p, g_o, g_l = forecast._train_step(copy.deepcopy(params), adamw_init(params),
+                                         xb.cuda(), yb.cuda(), ps.lr,
+                                         backbone=ps.backbone, n_heads=ps.n_heads)
+    c_p, c_o, c_l = forecast._train_step(copy.deepcopy(cpu), adamw_init(cpu), xb, yb, ps.lr,
+                                         backbone=ps.backbone, n_heads=ps.n_heads)
+    p_err = max((c - g.cpu()).abs().max().item() for c, g in
+                zip(c_p.parameters(), g_p.parameters(), strict=True))
+    l_err = abs(g_l.item() - c_l.item()) / max(1.0, abs(c_l.item()))
+    print(f"forecast: {name} card vs CPU: forecast_batch of 64 windows max rel err "
+          f"{b_err:.3e} (tol 1e-5); one training step: params max abs err {p_err:.3e} "
+          f"(tol 1e-4), loss rel err {l_err:.3e} (tol 1e-5)", flush=True)
+    check(b_err < 1e-5, f"forecast: {name} forecast_batch card vs CPU off by {b_err}")
+    check(p_err < 1e-4, f"forecast: {name} training step params card vs CPU off by {p_err}")
+    check(l_err < 1e-5, f"forecast: {name} training step loss card vs CPU off by {l_err}")
+
+
+def phase_forecast() -> dict:
+    """Load forecasting, proactive pre-warm control and the fleet on the
+    card: both registered multi-horizon forecasters trained there and held
+    against the CPU, serve2 served live under proactive-capacity, the
+    proactive OPD controller trained there, and the registered fleet served
+    with and without a forecasting tenant."""
+    from dataclasses import replace
+
+    from repro_torch import api
+
+    # -- train both forecasters on the card, as a Session builds them
+    fns = {}
+    for name in FORECASTERS:
+        sess = api.Session(forecast_spec(name), device="cuda")
+        lines = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[name] = sess.build_forecaster(log=lines.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ps = api.get_predictor(name)
+        print(f"forecast: {name} ({ps.backbone}, horizons {ps.horizons}, "
+              f"{sum(p.numel() for p in fns[name].params.parameters())} parameters) "
+              f"trained on the card in {wall:.3f} s: " + "; ".join(lines), flush=True)
+        check(len(lines) == ps.epochs, f"forecast: {name} logged {len(lines)} epochs")
+        check_forecaster(name, fns[name], sess.spec.scenario)
+        # the same training again, to report whether the card repeats it
+        again = api.Session(forecast_spec(name), device="cuda").build_forecaster()
+        diff = max((a - b).abs().max().item() for a, b in zip(
+            fns[name].params.parameters(), again.params.parameters(), strict=True))
+        print(f"forecast: {name} trained twice with the same seed: params max abs "
+              f"diff {diff:.3e} ({'equal' if diff == 0 else 'not equal'}; reported only)",
+              flush=True)
+        del again
+
+    # -- proactive-capacity over serve2, both stages live, lstm-multi on the card
+    fn = fns["lstm-multi"]
+    hist = np.random.default_rng(0).poisson(25.0, 120).astype(np.float64)
+    fc_ms = [synced_ms(lambda: fn(hist)) for _ in range(12)][2:]
+    print(f"forecast: one lstm-multi call (120 s window to the card, [4] back) median "
+          f"{float(np.median(fc_ms)):.3f} ms, min {min(fc_ms):.3f} ms over {len(fc_ms)} "
+          f"synchronised calls", flush=True)
+    spec = forecast_spec("lstm-multi")
+    live = api.Session(spec, device="cuda")
+    virt = api.Session(replace(spec, real=False), device="cuda")
+    # one trained forecaster for both, so the virtual-time gate compares the
+    # executors alone
+    live._forecaster = virt._forecaster = fn
+    virtual = virt.serve()
+    t0 = time.perf_counter()
+    rep, counts = serve_live(live, virtual, "forecast", all_variants=False)
+    wall = time.perf_counter() - t0
+    s = rep["summary"]
+    dts = np.asarray(rep["decide_wall_s"]) * 1e3
+    print(f"forecast: proactive-capacity live serve of serve2: {s['served']}/"
+          f"{s['submitted']} served, prewarms {s['prewarms']}, switches {s['switches']}, "
+          f"plans published {live.controller.planned}; p50 {s['p50']:.6f} s, p99 "
+          f"{s['p99']:.6f} s (virtual); decision d_t with the forecaster on the card over "
+          f"{len(dts)} decisions: median {float(np.median(dts)):.3f} ms, max "
+          f"{float(dts.max()):.3f} ms; flash launches {counts['flash_attention']}; "
+          f"phase wall {wall:.3f} s", flush=True)
+    check(s["prewarms"] > 0, "forecast: the proactive serve pre-warmed nothing")
+    del live, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the proactive OPD controller trained on the card, served in virtual time
+    pspec = replace(forecast_spec("lstm-multi", "proactive", real=False),
+                    controller=replace(api.get_controller("proactive"), seed=3,
+                                       train_episodes=2, num_envs=4))
+    sess = api.Session(pspec, device="cuda")
+    sess._forecaster = fn
+    t0 = time.perf_counter()
+    sess.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    params = sess.trainer.params
+    check(all(p.device.type == "cuda" for p in params.parameters()),
+          "forecast: proactive policy parameters not on the card")
+    vs = sess.serve()["summary"]
+    print(f"forecast: proactive trained on the card ({sess.trainer.num_envs} envs, "
+          f"rewards {[round(r, 2) for r in sess.trainer.history['reward']]}) in "
+          f"{train_s:.3f} s; served 120 s (real=False): {vs['served']}/{vs['submitted']}, "
+          f"prewarms {vs['prewarms']}, plans {sess.controller.planned}", flush=True)
+    check(vs["served"] == vs["submitted"] > 0,
+          f"forecast: proactive served {vs['served']} of {vs['submitted']}")
+
+    # -- the registered fleet, and a copy whose interactive tenant forecasts
+    fleet = api.get_fleet("fleet-3tenant-hetero")
+    pro = tuple(replace(t, controller=replace(api.get_controller("proactive-capacity"),
+                                              seed=3),
+                        scenario=replace(t.scenario, predictor="lstm-multi"))
+                if t.name == "interactive" else t for t in fleet.tenants)
+    for tag, fspec in (("fleet", fleet),
+                       ("fleet-forecast", replace(fleet, name=f"{fleet.name}-forecast",
+                                                  tenants=pro))):
+        t0 = time.perf_counter()
+        fsess = api.FleetSession(fspec, device="cuda")
+        frep = fsess.serve()
+        wall = time.perf_counter() - t0
+        f = frep["summary"]["fleet"]
+        print(f"{tag}: {fspec.name}: {f['served']}/{f['offered']} served, shed "
+              f"{f['shed']}, {f['events']} events, {f['reallocations']} reallocations, "
+              f"wall {wall:.3f} s (forecaster training included)", flush=True)
+        for name, t in frep["summary"]["tenants"].items():
+            print(f"{tag}: tenant {name} prio {t['priority']} share {t['share']:.4f} "
+                  f"offered {t['arrived']} served {t['served']} shed {t['shed']} "
+                  f"({t['shed_rate'] * 100:.2f}%) p50 {t['p50']} p95 {t['p95']} "
+                  f"p99 {t['p99']} prewarms {t['prewarms']}"
+                  + (f" slo_p99 {t['slo_p99']} met {t['slo_p99_met']}" if "slo_p99" in t
+                     else ""), flush=True)
+            check(t["arrived"] == t["served"] + t["shed"],
+                  f"{tag}: tenant {name} offered {t['arrived']} != served {t['served']} "
+                  f"+ shed {t['shed']}")
+        fcs = [tn for tn in fsess.fleet.tenants if tn.env.forecaster is not None]
+        check(len(fcs) == (1 if tag == "fleet-forecast" else 0),
+              f"{tag}: {len(fcs)} tenants carry a forecaster")
+        for tn in fcs:
+            check(all(p.device.type == "cuda" for p in tn.env.forecaster.params.parameters()),
+                  f"{tag}: tenant {tn.name}'s forecaster is not on the card")
+    return counts
+
+
 def fill_cache(cache: dict, gen) -> None:
     """Random self-attention KV in place, and a different number of valid
     slots per row (17, 22, 27, 32, 5, ... of C = 32): the step's attention
@@ -1054,12 +1275,15 @@ def main():
     opd_counts = phase_opd()
     gc.collect()
     torch.cuda.empty_cache()
+    forecast_counts = phase_forecast()
+    gc.collect()
+    torch.cuda.empty_cache()
     calibrate_counts = phase_calibrate()
 
     kernels = []
     for name in build.KERNELS:
         launches = (serve_counts[name] + decode_counts[name] + runtime_counts[name]
-                    + opd_counts[name] + calibrate_counts[name])
+                    + opd_counts[name] + forecast_counts[name] + calibrate_counts[name])
         check(launches > 0, f"{name} never launched on the main path")
         row = summary[name]
         src, replaces = SOURCES[name]

@@ -11,16 +11,15 @@ Controllers additionally register a *factory* ``(spec, pipe, params) ->
 controller instance`` used by the Session when serving starts; ``params`` is
 the trained policy state for learned controllers (None otherwise).
 
-The port registers the same names as ``repro/api/registry.py``. The
-forecast-driven controllers (``proactive``, ``proactive-expert``,
-``proactive-capacity``) are registered with their reference specs and
-factories that raise until ROADMAP Queue 1 item 9 ports them. Fleets (item
-10) and predictors (item 9) are not registered yet.
+The port registers the same names and specs as ``repro/api/registry.py``;
+a learned policy (``opd``, and the one inside ``proactive``) decides on the
+device its parameters live on.
 """
 from __future__ import annotations
 
-from repro_torch.api.specs import (ClusterSpec, ControllerSpec, NodeSpec,
-                                   PipelineSpec, ScenarioSpec)
+from repro_torch.api.specs import (ClusterSpec, ControllerSpec, FleetSpec,
+                                   NodeSpec, PipelineSpec, PredictorSpec,
+                                   ScenarioSpec, TenantSpec)
 from repro_torch.cluster.workloads import WORKLOADS
 from repro_torch.serving.arrivals import SCENARIOS
 
@@ -28,6 +27,8 @@ _PIPELINES: dict[str, PipelineSpec] = {}
 _SCENARIOS: dict[str, ScenarioSpec] = {}
 _CONTROLLERS: dict[str, tuple[ControllerSpec, object]] = {}
 _CLUSTERS: dict[str, ClusterSpec] = {}
+_FLEETS: dict[str, FleetSpec] = {}
+_PREDICTORS: dict[str, PredictorSpec] = {}
 
 
 # ---------------------------------------------------------------- pipelines --
@@ -85,6 +86,45 @@ def get_cluster(name: str) -> ClusterSpec:
 
 def list_clusters() -> tuple[str, ...]:
     return tuple(sorted(_CLUSTERS))
+
+
+# ------------------------------------------------------------------- fleets --
+
+def register_fleet(spec: FleetSpec, *, name: str | None = None) -> FleetSpec:
+    _FLEETS[name or spec.name] = spec
+    return spec
+
+
+def get_fleet(name: str) -> FleetSpec:
+    try:
+        return _FLEETS[name]
+    except KeyError:
+        raise KeyError(f"unknown fleet {name!r}; "
+                       f"registered: {list_fleets()}") from None
+
+
+def list_fleets() -> tuple[str, ...]:
+    return tuple(sorted(_FLEETS))
+
+
+# --------------------------------------------------------------- predictors --
+
+def register_predictor(spec: PredictorSpec, *,
+                       name: str | None = None) -> PredictorSpec:
+    _PREDICTORS[name or spec.name] = spec
+    return spec
+
+
+def get_predictor(name: str) -> PredictorSpec:
+    try:
+        return _PREDICTORS[name]
+    except KeyError:
+        raise KeyError(f"unknown predictor {name!r}; "
+                       f"registered: {list_predictors()}") from None
+
+
+def list_predictors() -> tuple[str, ...]:
+    return tuple(sorted(_PREDICTORS))
 
 
 # -------------------------------------------------------------- controllers --
@@ -185,23 +225,59 @@ def _register_builtin_scenarios():
                                              horizon=1200))
 
 
-def _not_ported(name: str, item: str):
-    """Factory of a controller the port does not have yet: raises when the
-    Session builds it, so the name and spec stay registered as in the
-    reference but nothing else runs in its place."""
-    def factory(spec, pipe, params):
-        raise NotImplementedError(
-            f"controller {name!r} is not ported yet (ROADMAP Queue 1 {item})")
-    return factory
+def _register_builtin_fleets():
+    # three tenant classes sharing the heterogeneous big/medium/small edge
+    # cell: a latency-critical interactive tenant (highest priority, tight
+    # p99 SLO), a steady analytics tenant, and a best-effort batch tenant
+    # (lowest priority — first to shed under fleet overload)
+    register_fleet(FleetSpec(
+        name="fleet-3tenant-hetero",
+        cluster=_CLUSTERS["edge-hetero-3"],
+        admission_limit=400.0,
+        tenants=(
+            TenantSpec(name="interactive",
+                       pipeline=_PIPELINES["serve2"],
+                       scenario=ScenarioSpec(kind="bursty", rate=25.0,
+                                             seed=0, horizon=120),
+                       controller=ControllerSpec(name="greedy"),
+                       priority=3, slo_p99=2.0),
+            TenantSpec(name="analytics",
+                       pipeline=_PIPELINES["serve3"],
+                       scenario=ScenarioSpec(kind="poisson", rate=15.0,
+                                             seed=1, horizon=120),
+                       controller=ControllerSpec(name="ipa"),
+                       priority=2, slo_p99=5.0),
+            TenantSpec(name="batch",
+                       pipeline=_PIPELINES["serve2"],
+                       scenario=ScenarioSpec(kind="ramp", rate=20.0,
+                                             seed=2, horizon=120),
+                       controller=ControllerSpec(name="greedy"),
+                       priority=1),
+        )))
+
+
+def _register_builtin_predictors():
+    # the paper's §IV-A predictor as a forecaster: 25-unit LSTM, single
+    # 20 s horizon — a drop-in for core/predictor.py through the spec path
+    register_predictor(PredictorSpec(name="lstm-20s", backbone="lstm",
+                                     horizons=(20,)))
+    # paper-faithful LSTM emitting every proactive-control horizon from one
+    # backbone pass — what the pre-warm baseline consumes by default
+    register_predictor(PredictorSpec(name="lstm-multi", backbone="lstm",
+                                     horizons=(5, 10, 20, 60)))
+    # the xLSTM matrix-memory backbone (nn/xlstm.py) at the same horizons —
+    # parallelisable over the window; needs a longer schedule to converge
+    register_predictor(PredictorSpec(name="mlstm-multi", backbone="mlstm",
+                                     horizons=(5, 10, 20, 60),
+                                     epochs=20, lr=3e-3))
 
 
 def _register_builtin_controllers():
     from repro_torch.core.baselines import GreedyPolicy, IPAPolicy, RandomPolicy
     from repro_torch.core.expert import CapacityPolicy, ExpertPolicy
     from repro_torch.core.opd import OPDPolicy
+    from repro_torch.core.proactive import ProactiveController
 
-    # the policy decides on the device its parameters live on (the Session
-    # checks that it is the session's)
     register_controller(
         "opd", lambda spec, pipe, params: OPDPolicy(
             pipe, params, greedy=spec.greedy, seed=spec.seed,
@@ -218,21 +294,31 @@ def _register_builtin_controllers():
     # variant space — variants switch with load (greedy's stay pinned)
     register_controller(
         "capacity", lambda spec, pipe, params: CapacityPolicy(pipe))
-    # forecast-driven pre-warm wrappers (a trained OPD policy, the expert,
-    # the capacity policy inside a ProactiveController)
+    # forecast-driven pre-warm wrapper around a trained OPD policy: same
+    # training path as "opd", plus a prewarm_plan consumed by RuntimeEnv
     register_controller(
-        "proactive",
-        _not_ported("proactive", "item 9, forecasting + proactive control"),
+        "proactive", lambda spec, pipe, params: ProactiveController(
+            OPDPolicy(pipe, params, greedy=spec.greedy, seed=spec.seed,
+                      device=next(params.parameters()).device)),
         spec=ControllerSpec(name="proactive", train_episodes=4, num_envs=4))
+    # the same wrapper around the demand-matched analytic expert — the
+    # expert re-sizes (variant, replicas, batch) with predicted load, so the
+    # forecast moves real capacity ahead of a burst and the pre-warm slot
+    # absorbs the variant-switch cold start (fig45 proactive comparison)
     register_controller(
         "proactive-expert",
-        _not_ported("proactive-expert", "item 9, forecasting + proactive control"))
+        lambda spec, pipe, params: ProactiveController(ExpertPolicy(pipe)))
+    # the headline fig45 proactive arm: min-cost inner, so the forecast's
+    # early variant switches are pre-warmed at a config cost below the
+    # reactive baselines (accuracy-first experts overspend on ramps)
     register_controller(
         "proactive-capacity",
-        _not_ported("proactive-capacity", "item 9, forecasting + proactive control"))
+        lambda spec, pipe, params: ProactiveController(CapacityPolicy(pipe)))
 
 
 _register_builtin_clusters()
 _register_builtin_pipelines()
 _register_builtin_scenarios()
+_register_builtin_fleets()
+_register_builtin_predictors()
 _register_builtin_controllers()

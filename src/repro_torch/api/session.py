@@ -1,5 +1,5 @@
-"""The Session facade — owns the env / runtime / policy lifecycle that entry
-points used to wire by hand:
+"""The Session facade — owns the env / runtime / predictor / policy
+lifecycle that entry points used to wire by hand:
 
     sess = Session.from_spec(exp)     # ExperimentSpec, dict, or JSON str
     sess.train(log=print)             # PPO episodes (no-op for baselines)
@@ -10,9 +10,10 @@ Port of ``repro/api/session.py``. Every random draw (arrival stream, request
 tokens, policy sampling, PPO training) derives from the spec's seeds, so a
 spec reloaded from JSON reproduces the run bit for bit; under a
 non-learned controller the same spec gives the reference's rewards,
-configs and summary. The OPD policy trains and decides on ``device``
-(default ``"cuda"``), which is resolved when a policy is first needed, so a
-non-learned controller never asks for the card.
+configs and summary. The OPD policy and a scenario's load forecaster train
+and run on ``device`` (default ``"cuda"``), which is resolved when one is
+first needed, so a non-learned controller without a forecaster never asks
+for the card.
 
 ``real=True`` serves each stage through live PyTorch models: a
 ``StageServer`` per stage, built once per session on ``device`` (default
@@ -20,11 +21,13 @@ non-learned controller never asks for the card.
 the archs' full width. The executors never move the virtual clock, so a real
 run's virtual-time results equal those of ``real=False``.
 
+``FleetSession`` serves N tenants on one shared event loop; its tenants'
+learned controllers and forecasters train on the fleet session's device.
+
 Not ported yet, and raising rather than running something else: training
 on the runtime twin (``train_backend="runtime"``, ROADMAP Queue 1 item 8),
-a scenario's forecaster and the proactive controllers (item 9), the fleet
-session (item 10), ``debug_checkify`` (item 13) and live stages of a family
-without model code (moe, vlm, hybrid: item 11 part B).
+``debug_checkify`` (item 13) and live stages of a family without model code
+(moe, vlm, hybrid: item 11 part B).
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ import time
 import numpy as np
 
 from repro_torch.api.registry import controller_factory
-from repro_torch.api.specs import ExperimentSpec
+from repro_torch.api.specs import ExperimentSpec, FleetSpec
 from repro_torch.cluster.env import PipelineEnv, RuntimeEnv
 from repro_torch.core.controller import decide
 from repro_torch.core.ppo import OPDTrainer, PPOConfig
@@ -89,6 +92,7 @@ class Session:
         self.trainer: OPDTrainer | None = None
         self.controller = None
         self._params = None
+        self._forecaster = None         # trained once, shared across envs
         self._report: dict | None = None
 
     # ------------------------------------------------------------ creation --
@@ -117,11 +121,6 @@ class Session:
         episodes = c.train_episodes if episodes is None else episodes
         if not self.trainable or episodes <= 0:
             return self
-        if c.name == "proactive":
-            raise NotImplementedError(
-                "controller 'proactive' wraps the OPD policy in a forecast-driven "
-                "ProactiveController, not ported yet (ROADMAP Queue 1 item 9, "
-                "forecasting + proactive control)")
         runtime_backend = c.train_backend == "runtime"
         if c.train_backend not in ("analytic", "runtime"):
             raise ValueError(f"unknown train_backend {c.train_backend!r}")
@@ -148,6 +147,39 @@ class Session:
         self.controller = None          # params changed -> rebuild on serve
         return self
 
+    def build_forecaster(self, *, log=None):
+        """Train the scenario's named ``PredictorSpec`` (once per session,
+        cached) on the scenario's *own arrival family* — per-second counts
+        Poisson-sampled from ``train_trace`` episode rate profiles, so the
+        model sees the integer-valued histories the Monitor will feed it,
+        decorrelated from the eval stream — on the session's device.
+        Returns an ``as_forecast_fn`` adapter, or None when the scenario
+        names no predictor."""
+        scen = self.spec.scenario
+        if scen.predictor is None:
+            return None
+        if self._forecaster is None:
+            from repro_torch.api.registry import get_predictor
+            from repro_torch.core import forecast
+            ps = get_predictor(scen.predictor)
+            traces = []
+            for ep in range(ps.train_episodes):
+                rates = np.maximum(scen.train_trace(ep), 0.0)
+                rng = np.random.default_rng(scen.seed + 104729 * (ep + 1))
+                traces.append(rng.poisson(rates).astype(np.float32))
+            scale = ps.scale or float(max(max(tr.max() for tr in traces), 1.0))
+            params, ch_scales = forecast.train_forecaster(
+                traces, backbone=ps.backbone, scale=scale,
+                horizons=ps.horizons, history=ps.history, hidden=ps.hidden,
+                dim=ps.dim, n_heads=ps.n_heads, epochs=ps.epochs,
+                batch=ps.batch, lr=ps.lr, seed=ps.seed, log=log,
+                device=self.device)
+            self._forecaster = forecast.as_forecast_fn(
+                params, scale=scale, backbone=ps.backbone,
+                horizons=ps.horizons, history=ps.history,
+                n_heads=ps.n_heads, channel_scales=ch_scales)
+        return self._forecaster
+
     # ------------------------------------------------------------- serving --
 
     def stage_servers(self) -> list:
@@ -161,18 +193,16 @@ class Session:
 
     def build_env(self):
         spec, scen = self.spec, self.spec.scenario
-        if scen.predictor is not None:
-            raise NotImplementedError(
-                f"scenario predictor {scen.predictor!r}: forecasters are not "
-                "ported yet (ROADMAP Queue 1 item 9)")
+        forecaster = self.build_forecaster()
         if spec.backend == "analytic":
-            return PipelineEnv(self.pipe, scen.eval_trace(), seed=scen.seed)
+            return PipelineEnv(self.pipe, scen.eval_trace(), seed=scen.seed,
+                               forecaster=forecaster)
         if spec.backend == "runtime":
             executors = ([s.execute for s in self.stage_servers()]
                          if spec.real else None)
             return RuntimeEnv(self.pipe, scen.build_arrivals(),
                               horizon=scen.horizon, executors=executors,
-                              seq_len=spec.seq_len)
+                              seq_len=spec.seq_len, forecaster=forecaster)
         raise ValueError(f"unknown backend {spec.backend!r}")
 
     def with_params(self, params) -> Session:
@@ -273,3 +303,109 @@ def run_experiment(spec: ExperimentSpec | dict | str, *, log=None,
     sess.train(log=log)
     sess.serve(on_step=on_step)
     return sess.report()
+
+
+class FleetSession:
+    """The Session facade for a multi-tenant fleet: builds every tenant's
+    pipeline on the shared cluster, trains learned tenant controllers via
+    per-tenant sub-Sessions, then serves all tenants on one shared event
+    loop (``serving.fleet.FleetRuntime``). Fully seeded from the spec. The
+    sub-Sessions train and forecast on ``device``."""
+
+    def __init__(self, spec: FleetSpec, *, device="cuda"):
+        self.spec = spec
+        self.device = device
+        self.fleet = None
+        self._params: dict[str, object] = {}    # tenant name -> trained params
+        self._forecasters: dict[str, object] = {}  # tenant name -> forecaster
+        self._report: dict | None = None
+
+    @classmethod
+    def from_spec(cls, spec: FleetSpec | dict | str, *,
+                  device="cuda") -> FleetSession:
+        if isinstance(spec, str):
+            spec = json.loads(spec)
+        if isinstance(spec, dict):
+            spec = FleetSpec.from_dict(spec)
+        return cls(spec, device=device)
+
+    def train(self, *, log=None) -> FleetSession:
+        """PPO-train every learned tenant controller on its own pipeline
+        view (no-op for baseline tenants)."""
+        for t in self.spec.tenants:
+            if (t.controller.name in _TRAINABLE
+                    and t.controller.train_episodes > 0
+                    and t.name not in self._params):
+                sub = Session(ExperimentSpec(
+                    pipeline=self.spec.tenant_pipeline(t),
+                    scenario=t.scenario, controller=t.controller,
+                    seq_len=self.spec.seq_len), device=self.device)
+                sub.train(log=log)
+                self._params[t.name] = sub.trainer.params
+        return self
+
+    def build_fleet(self, *, horizon: int | None = None):
+        from repro_torch.serving.fleet import build_fleet
+        entries = []
+        for t in self.spec.tenants:
+            pipe = self.spec.tenant_pipeline(t).build()
+            controller = controller_factory(t.controller.name)(
+                t.controller, pipe, self._params.get(t.name))
+            if t.scenario.predictor and t.name not in self._forecasters:
+                # train the tenant's named forecaster on its own arrival
+                # family (cached, so repeat build_fleet calls reuse it)
+                sub = Session(ExperimentSpec(
+                    pipeline=self.spec.tenant_pipeline(t),
+                    scenario=t.scenario, controller=t.controller,
+                    seq_len=self.spec.seq_len), device=self.device)
+                self._forecasters[t.name] = sub.build_forecaster()
+            entries.append({"name": t.name, "pipe": pipe,
+                            "arrivals": t.scenario.build_arrivals(),
+                            "controller": controller,
+                            "priority": t.priority, "slo_p99": t.slo_p99,
+                            "forecaster": self._forecasters.get(t.name)})
+        return build_fleet(entries,
+                           admission_limit=self.spec.admission_limit,
+                           min_share=self.spec.min_share,
+                           horizon=horizon or self.spec.horizon,
+                           seq_len=self.spec.seq_len)
+
+    def serve(self, *, horizon: int | None = None, on_step=None) -> dict:
+        """Run the fleet control loop: one ``step_interval`` per adaptation
+        interval over the horizon, then drain. ``on_step(fleet, interval)``
+        is called after each interval with the per-tenant results."""
+        from repro_torch.core.mdp import ADAPTATION_INTERVAL
+        self.train()
+        horizon = int(horizon or self.spec.horizon)
+        self.fleet = self.build_fleet(horizon=horizon)
+        n_steps = max(1, horizon // ADAPTATION_INTERVAL)
+        rewards: dict[str, list[float]] = {t.name: []
+                                           for t in self.spec.tenants}
+        sheds: dict[str, list[int]] = {t.name: [] for t in self.spec.tenants}
+        wall0 = time.perf_counter()
+        for _ in range(n_steps):
+            interval = self.fleet.step_interval()
+            for name, info in interval.items():
+                rewards[name].append(float(info["reward"]))
+                sheds[name].append(int(info["shed"]))
+            if on_step:
+                on_step(self.fleet, interval)
+        self.fleet.drain()
+        wall = time.perf_counter() - wall0
+        summary = self.fleet.summary()
+        summary["fleet"]["events_per_s"] = (self.fleet.loop.events
+                                            / max(wall, 1e-9))
+        self._report = {
+            "fleet_spec": self.spec.to_dict(),
+            "serve_wall_s": wall,
+            "rewards": rewards,
+            "shed_per_interval": sheds,
+            "summary": {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                        for k, v in summary.items()},
+        }
+        return self._report
+
+    def report(self) -> dict:
+        if self._report is None:
+            self.serve()
+        return self._report

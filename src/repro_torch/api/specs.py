@@ -6,12 +6,14 @@ reproduces the run bit-for-bit (every random draw derives from spec seeds).
   PipelineSpec    stages × archs × quants × knob ranges  -> core Pipeline
   ScenarioSpec    arrival process + rate + seed + horizon -> ArrivalProcess
   ControllerSpec  which controller, its seed / training budget
-  PredictorSpec   a load forecaster, as data (trained with ROADMAP item 9)
+  PredictorSpec   a load forecaster (``core/forecast.py``), as data
   ExperimentSpec  the full run: pipeline + scenario + controller + backend
+  TenantSpec      one fleet tenant: pipeline + scenario + controller
+                  + priority class + latency SLO
+  FleetSpec       N tenants sharing one cluster on one event loop
 
 ``to_dict``/``from_dict`` are the reference's (``repro/api/specs.py``), so a
-spec's JSON loads unchanged in either package. ``TenantSpec`` and
-``FleetSpec`` come with the fleet (ROADMAP Queue 1 item 10).
+spec's JSON loads unchanged in either package.
 """
 from __future__ import annotations
 
@@ -301,4 +303,76 @@ class ExperimentSpec:
                    controller=ControllerSpec.from_dict(d["controller"]),
                    backend=d.get("backend", "runtime"),
                    real=bool(d.get("real", False)),
+                   seq_len=int(d.get("seq_len", 32)))
+
+
+@dataclass(frozen=True)
+class TenantSpec:
+    """One fleet tenant: its pipeline (rebound onto the fleet's shared
+    cluster at build time), workload, per-pipeline controller, priority
+    class (higher admits longer under overload and weighs heavier in the
+    fleet's capacity arbitration) and an optional p99 latency SLO (seconds)
+    reported against measured telemetry."""
+    name: str
+    pipeline: PipelineSpec
+    scenario: ScenarioSpec
+    controller: ControllerSpec
+    priority: int = 1
+    slo_p99: float | None = None
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "pipeline": self.pipeline.to_dict(),
+                "scenario": self.scenario.to_dict(),
+                "controller": self.controller.to_dict(),
+                "priority": self.priority, "slo_p99": self.slo_p99}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> TenantSpec:
+        slo = d.get("slo_p99")
+        return cls(name=d["name"],
+                   pipeline=PipelineSpec.from_dict(d["pipeline"]),
+                   scenario=ScenarioSpec.from_dict(d["scenario"]),
+                   controller=ControllerSpec.from_dict(d["controller"]),
+                   priority=int(d.get("priority", 1)),
+                   slo_p99=None if slo is None else float(slo))
+
+
+@dataclass(frozen=True)
+class FleetSpec:
+    """N tenants multiplexed onto one shared cluster and one virtual-time
+    event loop. ``admission_limit`` is the fleet-wide backlog ceiling the
+    priority-graded load shedder works against (None = never shed);
+    ``min_share`` floors every tenant's slice of the cluster so arbitration
+    cannot starve a quiet tenant."""
+    name: str
+    cluster: ClusterSpec
+    tenants: tuple[TenantSpec, ...]
+    admission_limit: float | None = None
+    min_share: float = 0.08
+    seq_len: int = 32
+
+    @property
+    def horizon(self) -> int:
+        """Fleet serving horizon: the longest tenant scenario."""
+        return max(t.scenario.horizon for t in self.tenants)
+
+    def tenant_pipeline(self, tenant: TenantSpec) -> PipelineSpec:
+        """The tenant's pipeline rebound onto the fleet's shared cluster."""
+        return replace(tenant.pipeline, cluster=self.cluster)
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "cluster": self.cluster.to_dict(),
+                "tenants": [t.to_dict() for t in self.tenants],
+                "admission_limit": self.admission_limit,
+                "min_share": self.min_share, "seq_len": self.seq_len}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> FleetSpec:
+        limit = d.get("admission_limit")
+        return cls(name=d["name"],
+                   cluster=ClusterSpec.from_dict(d["cluster"]),
+                   tenants=tuple(TenantSpec.from_dict(t)
+                                 for t in d["tenants"]),
+                   admission_limit=None if limit is None else float(limit),
+                   min_share=float(d.get("min_share", 0.08)),
                    seq_len=int(d.get("seq_len", 32)))

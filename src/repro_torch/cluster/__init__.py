@@ -11,3 +11,6 @@ from repro_torch.cluster.perf_model import (variant_from_arch, default_pipeline,
 from repro_torch.cluster.env import (PipelineEnv, RuntimeEnv, ADAPTATION_INTERVAL,
                                      COLD_START_FRACTION)
 from repro_torch.cluster.monitor import Monitor
+from repro_torch.cluster.calibration import (CalibrationTable, calibrate_pipeline,
+                                             apply_to_cluster, fit_alpha_beta,
+                                             register_table, resolve_table)

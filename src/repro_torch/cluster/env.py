@@ -2,7 +2,7 @@
 Eq. 6, reward Eq. 7) as gym-style environments.
 
 Two backends share the MDP plumbing (``_ConfigEnvBase``: observation layout,
-default config):
+default config, predictor hook):
 
 - ``PipelineEnv`` — the analytic simulator: each step = one 10 s adaptation
   interval over a 1 Hz workload trace, physics from perf_model's roofline
@@ -12,11 +12,14 @@ default config):
   live runtime (variant switches pay cold start in *virtual time*), advances
   the event loop one adaptation interval, and scores *measured* telemetry
   (served throughput, end-to-end latency percentiles, queue backlog) with
-  the same Eq. (3)/(7) formulas via ``score_measurements``. The runtime's
-  per-second arrival history feeds the same Monitor.
+  the same Eq. (3)/(7) formulas via ``score_measurements``. The predictor
+  reads the runtime's per-second arrival history through the same Monitor.
 
 NumPy and plain Python, as in ``repro/cluster/env.py``: observations and
-rewards match the reference's bit for bit under the same actions.
+rewards match the reference's bit for bit under the same actions. A
+predictor or forecaster is any callable; the port's learned ones
+(``core/predictor.py``, ``core/forecast.py``) run on their params' device
+and hand back host values, once per observation.
 """
 from __future__ import annotations
 
@@ -33,42 +36,65 @@ from repro_torch.core.mdp import (ADAPTATION_INTERVAL, COLD_START_FRACTION, Conf
                             score_measurements)
 
 
-def _refuse_forecaster(forecaster):
-    """The multi-horizon forecaster is a network the port does not have
-    yet: passing one raises, it is never ignored."""
-    if forecaster is not None:
-        raise NotImplementedError(
-            "a load forecaster is a learned network, not ported yet (ROADMAP "
-            "Queue 1 item 9, forecasting + proactive control)")
-
-
 class _ConfigEnvBase:
-    """Shared MDP plumbing: Eq. (5) observation, default config, predictor.
-
-    The reference also carries a multi-horizon forecaster here; it is a
-    network the port does not have yet (ROADMAP Queue 1 item 9), so the
-    port's envs refuse one. The Eq. (5) state keeps the forecast block at
-    width 0, as the reference's does when no forecaster is attached."""
+    """Shared MDP plumbing: Eq. (5) observation, default config, predictor."""
 
     pipe: Pipeline
     cfg: Config
     monitor: Monitor
     predictor = None                 # callable: load_hist -> predicted load
-    forecast_in_state = False        # forecast block of Eq. 5 (width 0 here)
+    forecaster = None                # callable: load_hist -> [H] max loads
+    forecast_in_state = False        # append forecast block to Eq. 5 state
 
     @property
     def state_dim(self) -> int:
         # per task: (u, p, m, l, t, z, f, b, c)  — Eq. (5) — plus, on a
         # heterogeneous topology, one free-capacity fraction per node so the
-        # feature extractor sees comprehensive node status
-        return self.pipe.n_tasks * (9 + self._n_node_features)
+        # feature extractor sees comprehensive node status, plus (opt-in via
+        # ``forecast_in_state``) one predicted max load per forecast horizon
+        return self.pipe.n_tasks * (9 + self._n_node_features
+                                    + self._n_forecast_features)
 
     @property
     def _n_node_features(self) -> int:
         return 0 if self.pipe.scalar_pool else self.pipe.topo.n_nodes
 
+    @property
+    def _n_forecast_features(self) -> int:
+        if self.forecaster is None or not self.forecast_in_state:
+            return 0
+        return len(self.forecaster.horizons)
+
+    def _forecasts(self) -> np.ndarray | None:
+        """Per-horizon predicted max loads ([H]), or None without a
+        forecaster. Until the monitor holds a full window of *real*
+        measurements the model would see constant left-padding it never
+        trained on (``Monitor.valid``) — fall back to the last-observed
+        load at every horizon."""
+        fc = self.forecaster
+        if fc is None:
+            return None
+        if self.monitor.valid < getattr(fc, "min_history", 0):
+            return np.full(len(fc.horizons), self._current_load())
+        return np.asarray(fc(self.monitor.load_history()), dtype=np.float64)
+
+    def _at_horizon(self, fc: np.ndarray, horizon: float) -> float:
+        """The forecast at the horizon nearest ``horizon`` seconds."""
+        hs = self.forecaster.horizons
+        return float(fc[int(np.argmin([abs(h - horizon) for h in hs]))])
+
+    def predicted_load_at(self, horizon: float) -> float:
+        """Horizon-matched predicted max load: the multi-horizon forecast
+        nearest ``horizon`` s when a forecaster is attached, else the
+        single-horizon predictor / current load."""
+        fc = self._forecasts()
+        if fc is None:
+            return float(self._predicted_load())
+        return self._at_horizon(fc, horizon)
+
     def _observe(self, cur: float | None = None,
-                 pred: float | None = None) -> np.ndarray:
+                 pred: float | None = None,
+                 fc: np.ndarray | None = None) -> np.ndarray:
         pipe, cfg = self.pipe, self.cfg
         u = (pipe.w_max - resource_usage(pipe, cfg)) / pipe.w_max
         p = (self._current_load() if cur is None else cur) / 100.0
@@ -81,6 +107,12 @@ class _ConfigEnvBase:
                                                strict=True)]
         else:
             node_free = []
+        if self._n_forecast_features:
+            if fc is None:
+                fc = self._forecasts()
+            fc_feats = [float(v) / 100.0 for v in fc]
+        else:
+            fc_feats = []
         rows = []
         for n, task in enumerate(pipe.tasks):
             var = task.variants[cfg.z[n]]
@@ -92,7 +124,7 @@ class _ConfigEnvBase:
                 cfg.f[n] / pipe.f_max,
                 cfg.b[n] / pipe.b_max,
                 cfg.f[n] * var.cost / pipe.w_max,            # c_n
-            ] + node_free)
+            ] + node_free + fc_feats)
         return np.asarray(rows, dtype=np.float32).reshape(-1)
 
     def _current_load(self) -> float:
@@ -104,14 +136,26 @@ class _ConfigEnvBase:
                                              "min_history", 0):
                 return float(self.predictor(self.monitor.load_history()))
             return self._current_load()  # window still padded — see Monitor
+        if self.forecaster is not None:
+            fc = self._forecasts()
+            return self._at_horizon(fc, ADAPTATION_INTERVAL)
         return self._current_load()
 
     def observe(self) -> Observation:
         """Public decision-time snapshot for the Controller protocol."""
         cur = float(self._current_load())
-        pred = float(self._predicted_load())
-        return Observation(state=self._observe(cur, pred), config=self.cfg,
-                           current_load=cur, predicted_load=pred)
+        fc = self._forecasts()                 # one forecaster call per obs
+        if self.predictor is not None or fc is None:
+            pred = float(self._predicted_load())
+        else:
+            pred = self._at_horizon(fc, ADAPTATION_INTERVAL)
+        return Observation(
+            state=self._observe(cur, pred, fc), config=self.cfg,
+            current_load=cur, predicted_load=pred,
+            forecasts=(None if fc is None
+                       else tuple(float(v) for v in fc)),
+            horizons=(None if self.forecaster is None
+                      else tuple(self.forecaster.horizons)))
 
     def default_config(self) -> Config:
         N = self.pipe.n_tasks
@@ -128,9 +172,9 @@ class PipelineEnv(_ConfigEnvBase):
         self.pipe = pipe
         self.trace = np.asarray(trace, dtype=np.float64)
         self.w = weights or QoSWeights()
-        self.predictor = predictor           # callable: load_hist -> predicted
-        _refuse_forecaster(forecaster)
         self.monitor = Monitor(history)
+        self.predictor = predictor           # callable: load_hist -> predicted
+        self.forecaster = forecaster         # callable: load_hist -> [H]
         self.forecast_in_state = bool(forecast_in_state)
         self.rng = np.random.default_rng(seed)
         self.n_steps = len(self.trace) // ADAPTATION_INTERVAL
@@ -212,8 +256,8 @@ class RuntimeEnv(_ConfigEnvBase):
         self.arrivals = arrivals
         self.horizon = int(horizon)
         self.w = weights or QoSWeights()
-        self.predictor = predictor           # callable: load_hist -> predicted
-        _refuse_forecaster(forecaster)
+        self.predictor = predictor
+        self.forecaster = forecaster
         self.forecast_in_state = bool(forecast_in_state)
         self.executors = executors
         self.max_wait = DEFAULT_MAX_WAIT if max_wait is None else max_wait

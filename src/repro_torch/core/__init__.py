@@ -1,8 +1,9 @@
 """OPD — the paper's contribution: MDP model, LSTM workload predictor,
 residual feature extraction, PPO policy with expert guidance, baselines.
 The NumPy parts are bit-identical to ``repro.core``; the networks and the
-vectorized analytic env run on a torch device. Forecasting and proactive
-control come with ROADMAP Queue 1 item 9, the runtime twin with item 8."""
+vectorized analytic env and the load forecaster run on a torch device;
+proactive pre-warm control is NumPy. The runtime twin comes with ROADMAP
+Queue 1 item 8."""
 from repro_torch.core.mdp import (ModelVariant, Task, Pipeline, Config, QoSWeights,
                                   pipeline_metrics, qos, objective, reward, feasible,
                                   resource_usage)
@@ -20,3 +21,9 @@ from repro_torch.core.expert import CapacityPolicy, ExpertPolicy, capacity_confi
 from repro_torch.core.baselines import RandomPolicy, GreedyPolicy, IPAPolicy
 from repro_torch.core.opd import OPDPolicy, run_episode, run_episodes_vectorized
 from repro_torch.core.controller import Observation, ControllerBase, decide
+from repro_torch.core.forecast import (init_forecaster, forecast_batch,
+                                       train_forecaster, smape_horizons,
+                                       pinball_horizons, as_forecast_fn,
+                                       make_forecast_dataset, telemetry_trace,
+                                       HORIZONS)
+from repro_torch.core.proactive import ProactiveController

@@ -8,6 +8,9 @@ data plane the OPD controller manages — plus the event-driven pipeline mode.
         [--scenario bursty] [--horizon 120] [--policy greedy] [--seed 3] \
         [--cluster edge-hetero-3] [--device cuda]
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --fleet fleet-3tenant-hetero [--horizon 120] [--device cuda]
+
 Single-arch mode builds the model from a seed with random weights (the
 ``--smoke`` reduced variant unless ``--full``), starts from an empty cache
 and feeds back the argmax token each step. On a CUDA device every layer's
@@ -17,8 +20,11 @@ controller in the loop and prints per-interval telemetry, line for line as
 the reference launcher does; it runs the virtual-time loop alone. With
 ``--policy opd`` it first trains the OPD agent through the session on
 ``--device`` (default ``cuda``), which then decides there; the non-learned
-controllers never touch the card. ``--fleet`` raises until the fleet is
-ported (ROADMAP Queue 1 item 10).
+controllers never touch the card. ``--fleet`` serves a registered
+multi-tenant fleet (N pipelines on one shared cluster and event loop) and
+prints the per-tenant shed / latency summary, line for line as the
+reference does; its tenants' learned controllers and forecasters train and
+run on ``--device``.
 """
 from __future__ import annotations
 
@@ -115,8 +121,44 @@ def run_pipeline(args) -> dict:
     return rep
 
 
+def run_fleet(args) -> dict:
+    from repro_torch import api
+
+    spec = api.get_fleet(args.fleet)
+    sess = api.FleetSession.from_spec(spec, device=args.device)
+
+    def show(fleet, interval):
+        now = fleet.loop.now
+        for name, info in interval.items():
+            print(f"t={now:5.0f}s {name:<12} demand={info['demand']:5.1f}/s "
+                  f"served={info['processed']:4d} shed={info['shed']:3d} "
+                  f"p95={_ms(info['p95'] if info['p95'] == info['p95'] else None)}"
+                  f" backlog={info['backlog']}")
+
+    rep = sess.serve(horizon=args.horizon, on_step=show)
+    s = rep["summary"]
+    for name, t in s["tenants"].items():
+        line = (f"tenant {name:<12} prio={t['priority']} "
+                f"share={t['share']:.2f} offered={t['arrived']:6d} "
+                f"served={t['served']:6d} shed={t['shed']:5d} "
+                f"({t['shed_rate'] * 100:.1f}%) p50={_ms(t['p50'])} "
+                f"p95={_ms(t['p95'])} p99={_ms(t['p99'])}")
+        if "slo_p99" in t:
+            line += (f" slo_p99={_ms(t['slo_p99'])} "
+                     f"{'MET' if t['slo_p99_met'] else 'MISSED'}")
+        print(line)
+    f = s["fleet"]
+    print(f"fleet {spec.name}: {f['tenants']} tenants, "
+          f"{f['served']}/{f['offered']} served "
+          f"(shed {f['shed']}, {f['shed_rate'] * 100:.1f}%), "
+          f"{f['events']} events ({f['events_per_s']:.0f}/s), "
+          f"{f['reallocations']} reallocations")
+    return rep
+
+
 def main(argv=None):
-    from repro_torch.api import list_clusters, list_controllers, list_scenarios
+    from repro_torch.api import (list_clusters, list_controllers, list_fleets,
+                                 list_scenarios)
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b", choices=sorted(ARCHS))
@@ -134,18 +176,16 @@ def main(argv=None):
     ap.add_argument("--cluster", default=None, choices=list_clusters(),
                     help="place the pipeline on a registered cluster "
                          "topology (default: homogeneous scalar pool)")
-    ap.add_argument("--fleet", default=None,
-                    help="serve a registered multi-tenant fleet (not ported "
-                         "yet: ROADMAP Queue 1 item 10)")
+    ap.add_argument("--fleet", default=None, choices=list_fleets(),
+                    help="serve a registered multi-tenant fleet (N pipelines "
+                         "on one shared cluster and event loop)")
     ap.add_argument("--seed", type=int, default=3)
     ap.add_argument("--horizon", type=int, default=120)
     ap.add_argument("--rate", type=float, default=25.0)
     args = ap.parse_args(argv)
 
     if args.fleet:
-        raise NotImplementedError(
-            f"--fleet {args.fleet}: the multi-tenant fleet is not ported yet "
-            "(ROADMAP Queue 1 item 10)")
+        return run_fleet(args)
     if args.pipeline:
         return run_pipeline(args)
 

@@ -1,6 +1,6 @@
 """Serving layer of the port: batchers, the stage/pipeline engine, arrival
-processes, telemetry and the event-driven runtime. The multi-tenant fleet
-comes with ROADMAP Queue 1 item 10."""
+processes, telemetry, the event-driven runtime and the multi-tenant fleet
+on one shared event loop."""
 from repro_torch.serving.batcher import (Batcher, ContinuousBatcher, Request,
                                          stack_tokens)
 from repro_torch.serving.engine import PipelineServer, StageServer
@@ -11,3 +11,5 @@ from repro_torch.serving.arrivals import (ArrivalProcess, PoissonArrivals,
 from repro_torch.serving.telemetry import Telemetry, percentile
 from repro_torch.serving.runtime import (ServingRuntime, RuntimeStage, EventLoop,
                                          COLD_START_SECONDS)
+from repro_torch.serving.fleet import (FleetRuntime, FleetTenant, build_fleet,
+                                       scale_topology)

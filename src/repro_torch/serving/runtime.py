@@ -22,9 +22,8 @@ sequence (FIFO), so identical seeds reproduce identical schedules.
 
 The event heap itself lives in an :class:`EventLoop` that a runtime either
 owns privately (the classic single-pipeline case) or shares with other
-runtimes — a multi-tenant fleet (the reference's `serving.fleet`, ported
-with ROADMAP Queue 1 item 10) hosts N pipelines on one loop, interleaving
-their events in one deterministic virtual timeline.
+runtimes — a multi-tenant fleet (:mod:`serving.fleet`) hosts N pipelines on
+one loop, interleaving their events in one deterministic virtual timeline.
 
 NumPy, ``heapq`` and plain Python, as in ``repro/serving/runtime.py``: the
 same seed gives the same schedule, batch log and summary bit for bit.

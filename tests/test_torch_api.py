@@ -5,15 +5,20 @@ Specs serialise to the same JSON, the registries hold the same names, and a
 ``Session.serve()`` report under a non-learned controller equals the
 reference's once the wall-clock keys are dropped. The registered ``opd``
 controller trains through ``Session.train`` on the session's device and
-serves; parts the port does not have yet raise ``NotImplementedError``
-naming their ROADMAP item.
+serves, and so does ``proactive``, the OPD policy inside the forecast-driven
+pre-warm wrapper; with the same NumPy stub forecaster and carried policy
+weights the three proactive controllers serve as the reference's do. Parts
+the port does not have yet raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 import json
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 
 from repro import api as japi  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
@@ -194,30 +199,93 @@ def test_launcher_trains_and_serves_opd(capsys, monkeypatch):
         serve.main(["--pipeline", "--policy", "opd", "--horizon", "10"])
 
 
-# ------------------------------------------------------- not ported yet --
+# ---------------------------------------------------------- proactive --
+
+def stub_forecaster():
+    """A NumPy forecaster (the same in both packages): a burst a minute
+    ahead of every interval, large enough that each inner controller would
+    configure another variant for it, so every wrapper publishes plans."""
+    def fn(hist):
+        recent = float(np.mean(np.asarray(hist, dtype=np.float64)[-10:]))
+        return np.asarray([recent, recent, 1.6 * recent + 20.0, 60.0 * recent + 40.0])
+    fn.horizons = (5, 10, 20, 60)
+    fn.min_history = 0
+    return fn
+
+
+def proactive_serve(ns, name, params=None, **kw):
+    """A 60 s serve2 runtime serve under ``name`` with the stub forecaster
+    attached (greedy decoding for the OPD policy inside ``proactive``)."""
+    exp = experiment(ns, name, "runtime", pipeline="serve2", horizon=60)
+    exp = ns.replace(exp, controller=ns.replace(exp.controller, greedy=True),
+                     scenario=ns.replace(exp.scenario, predictor="lstm-multi"))
+    sess = ns.Session(exp, **kw)
+    sess._forecaster = stub_forecaster()        # in place of the trained one
+    if params is not None:
+        sess.with_params(params)
+    return sess.serve(), sess.controller
+
 
 @pytest.mark.parametrize("name", LEARNED)
 def test_learned_controllers_registered_but_raise(name):
+    """Each proactive controller builds from its registered factory and
+    serves as the reference's: the same configs, rewards and pre-warms,
+    the same plans published; ``proactive``'s OPD policy decides on its
+    carried params' device. (The name dates from when the port refused
+    them.)"""
     assert dump(api.get_controller(name)) == dump(japi.get_controller(name))
-    sess = api.Session(experiment(api, name, "runtime"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sess.build_controller()
+    jparams = tparams = None
+    if name == "proactive":
+        from repro.core import policy as jpolicy
+        from repro_torch.core import policy
+        from repro_torch.models.convert import load_jax_params
+        pipe = api.get_pipeline("serve2").build()
+        sizes, dim = policy.head_sizes(pipe), pipe.n_tasks * 9
+        jparams = jpolicy.init_policy(jax.random.PRNGKey(5), dim, sizes)
+        tparams = load_jax_params(policy.Policy(dim, sizes),
+                                  jax.tree.map(np.asarray, jparams))
+    want, jctrl = proactive_serve(japi, name, jparams)
+    got, ctrl = proactive_serve(api, name, tparams, device="cpu")
+    assert virtual(got) == virtual(want)
+    assert type(ctrl).__name__ == type(jctrl).__name__ == "ProactiveController"
+    assert type(ctrl.inner).__name__ == type(jctrl.inner).__name__
+    assert ctrl.planned == jctrl.planned > 0 and ctrl.prewarm_plan == jctrl.prewarm_plan
+    assert got["summary"]["prewarms"] == want["summary"]["prewarms"] > 0
+    if name == "proactive":
+        assert ctrl.inner.device.type == "cpu"
 
 
 def test_training_a_learned_controller_raises():
-    """What training cannot do yet: the runtime twin (item 8) and the
-    proactive wrapper (item 9)."""
+    """What training cannot do yet: the runtime twin (item 8). ``proactive``
+    trains exactly as ``opd`` does (the wrapper adds only the plan), then
+    serves."""
     exp = experiment(api, "opd", "analytic")
     runtime = api.replace(exp, controller=api.replace(exp.controller,
                                                       train_backend="runtime"))
     with pytest.raises(NotImplementedError, match="item 8"):
         api.Session(runtime, device="cpu").train()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        api.Session(experiment(api, "proactive", "analytic"), device="cpu").train()
     assert api.Session(experiment(api, "greedy", "analytic")).train().controller is None
+    short = dict(train_episodes=1, train_seconds=120)
+
+    def trained(name):
+        e = experiment(api, name, "analytic", pipeline="serve2", horizon=30)
+        e = api.replace(e, controller=api.replace(e.controller, **short))
+        return api.Session(e, device="cpu").train()
+
+    pro, opd = trained("proactive"), trained("opd")
+    assert pro.trainer.history == opd.trainer.history
+    assert all(torch.equal(a, b) for a, b in zip(pro.trainer.params.parameters(),
+                                                 opd.trainer.params.parameters(),
+                                                 strict=True))
+    assert type(pro.build_controller()).__name__ == "ProactiveController"
+    rep = pro.serve()
+    assert len(rep["rewards"]) == 3
 
 
-def test_unported_options_raise():
+# ------------------------------------------------------- not ported yet --
+
+
+def test_unported_options_raise(monkeypatch):
     # perf_source="calibrated" is ported; with no table named it raises
     # rather than load the reference's CPU-mesh table
     with pytest.raises(KeyError, match="no default table"):
@@ -227,11 +295,19 @@ def test_unported_options_raise():
     exp = experiment(api, "greedy", "runtime")
     with pytest.raises(NotImplementedError, match="item 13"):
         api.Session(exp, debug_checkify=True)
+    # a scenario's forecaster trains on the session's device: asking for the
+    # card on a host without one raises, it never falls back to the CPU
     scen = api.replace(exp.scenario, predictor="lstm-multi")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        api.Session(api.replace(exp, scenario=scen)).serve()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        serve.main(["--fleet", "fleet-3tenant-hetero"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        api.Session(api.replace(exp, scenario=scen)).build_forecaster()
+    assert api.Session(api.replace(exp, scenario=api.replace(
+        scen, predictor="no-such-predictor")), device="cpu")._forecaster is None
+    with pytest.raises(KeyError, match="unknown predictor"):
+        api.Session(api.replace(exp, scenario=api.replace(
+            scen, predictor="no-such-predictor")), device="cpu").build_forecaster()
+    with pytest.raises(SystemExit):
+        serve.main(["--fleet", "no-such-fleet"])
 
 
 def test_real_run_of_unported_family_names_the_stage():

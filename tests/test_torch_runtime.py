@@ -249,18 +249,35 @@ def test_runtime_env_steps_bit_for_bit(controller, pipeline):
 
 
 def test_envs_refuse_predictor_and_forecaster():
-    """The forecaster (item 9) is refused; a load predictor is accepted and
+    """Both envs accept a forecaster (the name dates from when the port
+    refused one) and observe with it as the reference's do; without one the
+    forecast block stays out of Eq. 5 even when asked for. A load predictor
     feeds Eq. 5's predicted load exactly as in the reference, falling back
     to the current load while the monitor holds fewer than its
     ``min_history`` real seconds."""
+    def forecaster(hist):
+        return np.asarray([1.0, 2.0, 3.0, float(np.max(hist))])
+    forecaster.horizons, forecaster.min_history = (5, 10, 20, 60), 0
+
+    def forecast_obs(ns):
+        pipe_ = ns.api.get_pipeline("serve3").build()
+        out = []
+        for e in (ns.env.PipelineEnv(pipe_, np.full(100, 10.0), forecaster=forecaster,
+                                     forecast_in_state=True),
+                  ns.env.RuntimeEnv(pipe_, ns.arrivals.PoissonArrivals(5.0, seed=1),
+                                    horizon=20, forecaster=forecaster,
+                                    forecast_in_state=True)):
+            o = e.observe()
+            out.append((e.state_dim, o.state.tolist(), o.forecasts, o.horizons,
+                        o.predicted_load, e.predicted_load_at(60)))
+        return out
+
+    got = forecast_obs(PORT)
+    assert got == forecast_obs(REF)
     pipe = api.get_pipeline("serve3").build()
-    trace = np.full(100, 10.0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        env.PipelineEnv(pipe, trace, forecaster=lambda h: [1.0])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        env.RuntimeEnv(pipe, arrivals.PoissonArrivals(5.0), horizon=10,
-                       forecaster=lambda h: [1.0])
-    e = env.PipelineEnv(pipe, trace, forecast_in_state=True)
+    assert [g[0] for g in got] == [pipe.n_tasks * 13] * 2
+    assert got[0][2] == (1.0, 2.0, 3.0, 10.0) and got[0][4] == 2.0 and got[0][5] == 10.0
+    e = env.PipelineEnv(pipe, np.full(100, 10.0), forecast_in_state=True)
     obs = e.observe()
     assert e.state_dim == obs.state.size == pipe.n_tasks * 9
     assert obs.forecasts is None and obs.horizons is None
