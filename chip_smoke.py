@@ -70,10 +70,26 @@ Phases (any failure exits non-zero):
            every stage, and the calibrated virtual p50/p99 and cost beside
            the analytic (TPU v5e) run's; then the same spec for 30 s under
            the random controller, which executes every variant of both stages
+  families the registered serve3 (stage 2: granite-moe-3b-a800m, zamba2-2.7b)
+           served live at full width in f32 with the runtime phase's checks,
+           under the greedy controller for 60 s and the random one (seed 2)
+           for 30 s, which executes every variant of every stage; the plain
+           path of a MoE replays the kernel path's dispatch plans
+           (moe_plans); granite-3-8b and llava-next-mistral-7b at full width
+           in bf16 (ArchConfig.dtype) through one StageServer: execute at
+           B = 1 and 4, make_prefill_step (llava: 576 patches + 32 tokens),
+           8 decode steps through make_serve_step, each against the plain
+           attention path; granite-moe's and zamba2's decode steps captured
+           in CUDA graphs (bf16 and int8, b = 1 and 32), profiled, and held
+           against their eager steps and the plain attention path
 The kernels phase also holds whisper-small's g = 1 shapes (flash B4 S32
 H12 Hkv12 D64, decode B4 H12 C32) in both dtypes and bf16 q over an f32
 cache (llama3.2-1b's, starcoder2-3b's and whisper-small's decode steps),
-all timed, the decode cases at 1, 9, 17 and 32 valid slots per row.
+all timed, the decode cases at 1, 9, 17 and 32 valid slots per row, and
+the families' shapes in both dtypes, timed: flash B4 S32 H32 Hkv32 D80
+(zamba2's shared block, g = 1), B4 S32 H24 Hkv8 D64 (granite-moe, g = 3)
+and B1 S608 H32 Hkv8 D128 (llava's prefill), decode B4 H32 Hkv32 D80 and
+B4 H24 Hkv8 D64 at C32 (1/9/17/32 valid) and B1 H32 Hkv8 D128 C640.
 The last two lines are the kernel summary and the device line, as JSON.
 Imports only torch, numpy and the port (never jax or the JAX package).
 """
@@ -81,6 +97,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import importlib
 import json
 import os
 import re
@@ -141,6 +158,13 @@ WHISPER_DEC = (4, 12, 12, 64, 32, GRID_NV)      # (B, H, Hkv, D, C, nv)
 # bf16 q over an f32 cache, what a decode step with bf16 weights hands over:
 # llama3.2-1b's, starcoder2-3b's and whisper-small's steps in the calibrate grid
 MIXED_DEC = [(4, 32, 8, 64, 32, GRID_NV), (4, 24, 2, 128, 32, GRID_NV), WHISPER_DEC]
+# the families phase's attention: zamba2-2.7b's shared block (MHA, D = 80),
+# granite-moe-3b-a800m (g = 3) at a serving prefill and at the calibrate
+# grid's decode cache, and llava-next-mistral-7b's prefill of 576 patches and
+# 32 tokens (S = 608, off the 64-row grid) and its decode over 640 slots
+FAMILY_FA = [(4, 32, 32, 32, 80), (4, 32, 24, 8, 64), (1, 608, 32, 8, 128)]
+FAMILY_DEC = [(4, 32, 32, 80, 32, GRID_NV), (4, 24, 8, 64, 32, GRID_NV),
+              (1, 32, 8, 128, 640, 616)]            # (B, H, Hkv, D, C, nv)
 SASS_OPS = ("HGMMA", "HMMA")
 SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:111"),
@@ -392,8 +416,10 @@ def phase_kernels(timer) -> dict[str, dict]:
                                    timed=dtype == torch.float32))
         rows.append(flash_case(timer, gen, (1, 128, 4, 2, 64), dtype, causal=False))
         rows.append(decode_case(timer, gen, *SLICE_DEC, dtype, timed=True))
-        for shape in TIMED_DEC + [WHISPER_DEC]:
+        for shape in TIMED_DEC + [WHISPER_DEC] + FAMILY_DEC:
             rows.append(decode_case(timer, gen, *shape, dtype, timed=True))
+        for shape in FAMILY_FA:
+            rows.append(flash_case(timer, gen, shape, dtype, timed=True))
         for name in DEC_MASKS:
             rows.append(decode_case(timer, gen, *DEC_MASK_SHAPE, None, dtype, mask=name))
         for name in ("holes", "single_slot"):
@@ -428,6 +454,43 @@ def plain_attention():
         yield
     finally:
         ops.flash_attention, ops.decode_attention = saved
+
+
+@contextlib.contextmanager
+def moe_plans(plans: list, replay: bool):
+    """Record the dispatch plans (``nn.moe._route``'s results) of the port's
+    MoE layers into ``plans``, or, with ``replay``, hand them back in the
+    same order instead of routing. A routing choice near a tie (the k-th
+    and (k+1)-th expert of a token, or the capacity between tokens equal up
+    to rounding) turns on the last bits of the hidden state, which the two
+    attention paths round differently; a plain path that replays the kernel
+    path's plans then differs from it by the attention's rounding alone.
+    Without experts nothing is recorded. Test tooling only."""
+    moe_mod = importlib.import_module("repro_torch.nn.moe")
+    route = moe_mod._route
+    recorded = iter(list(plans))
+
+    def planned(*args, **kw):
+        if replay:
+            return next(recorded)
+        plan = route(*args, **kw)
+        plans.append(plan)
+        return plan
+
+    moe_mod._route = planned
+    try:
+        yield
+    finally:
+        moe_mod._route = route
+    check(not replay or next(recorded, None) is None, "moe_plans: a recorded plan unused")
+
+
+def attention_layers(cfg) -> int:
+    """Attention applications per forward or decode step: every layer, the
+    shared block once per group of a hybrid, none in the xLSTM."""
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
 
 
 def phase_serve() -> tuple[dict, object]:
@@ -529,9 +592,9 @@ def phase_decode(model) -> dict:
 
 
 def stage1_spec(controller: str):
-    """The live stage of the registered serve2 pipeline (its stage 0 family
-    has no model code yet): bursty arrivals, seed 3, 120 s of virtual time,
-    under the registered ``controller`` with seed 3."""
+    """The registered serve2 pipeline's stage 1, served alone: bursty
+    arrivals, seed 3, 120 s of virtual time, under the registered
+    ``controller`` with seed 3."""
     from dataclasses import replace
 
     from repro_torch import api
@@ -555,8 +618,9 @@ def serve_live(sess, virtual: dict, tag: str, all_variants: bool) -> tuple[dict,
     stage executed and each variant of it (``all_variants``), and the kernel
     path's logits against the plain attention path for each variant of each
     stage (on its first batch, or on the stage's first batch where the
-    controller never chose it) and on the largest batch. Returns the report
-    and the launch counts."""
+    controller never chose it) and on the largest batch, the plain path
+    replaying the kernel path's MoE dispatch plans (``moe_plans``). Returns
+    the report and the launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.models import api as model_api
 
@@ -597,11 +661,13 @@ def serve_live(sess, virtual: dict, tag: str, all_variants: bool) -> tuple[dict,
         check(any(st == i for st, *_ in batches), f"{tag}: stage {i} never executed")
         for z, name in enumerate(names):
             sizes = [len(tok) for st, v, tok, _, _ in batches if (st, v) == (i, z)]
+            secs = sum(w for st, v, *_, w in batches if (st, v) == (i, z))
             check(bool(sizes) or not all_variants,
                   f"{tag}: stage {i} variant {z} ({name}) never executed")
             print(f"{tag}: stage {i} {name}: {len(sizes)} batches"
-                  + (f", sizes {min(sizes)}-{max(sizes)}, {sum(sizes)} requests" if sizes
-                     else " (never chosen)"), flush=True)
+                  + (f", sizes {min(sizes)}-{max(sizes)}, {sum(sizes)} requests, "
+                     f"{secs:.3f} s inside execute ({secs / len(sizes) * 1e3:.3f} ms a batch)"
+                     if sizes else " (never chosen)"), flush=True)
     exec_s = sum(b[-1] for b in batches)
     print(f"{tag}: serve wall {wall:.3f}s, inside execute {exec_s:.3f}s "
           f"({exec_s / wall:.4f} of it); {len(batches) / wall:.2f} batches/s, "
@@ -612,8 +678,7 @@ def serve_live(sess, virtual: dict, tag: str, all_variants: bool) -> tuple[dict,
           f"{tag}: {s['served']} of {s['submitted']} requests served")
     for key in ("summary", "rewards", "configs"):
         check(rep[key] == virtual[key], f"{tag}: {key} differs from the real=False run")
-    want = sum(servers[i].variants[z].n_layers for i, z, *_ in batches
-               if servers[i].variants[z].family != "ssm")
+    want = sum(attention_layers(servers[i].variants[z]) for i, z, *_ in batches)
     check(counts["flash_attention"] == want,
           f"{tag}: flash launches {counts['flash_attention']} != {want}")
     check(counts["decode_attention"] == 0, f"{tag}: decode kernel launched while serving")
@@ -630,16 +695,18 @@ def serve_live(sess, virtual: dict, tag: str, all_variants: bool) -> tuple[dict,
         _, zk, tokens, out, _ = batches[k]
         server, cfg = servers[i], servers[i].variants[z]
         batch = server._make_batch(tokens, cfg)
+        plans = []
         with torch.inference_mode():
-            lk, _ = model_api.forward(server.params[z], batch, cfg)
-            with plain_attention():
+            with moe_plans(plans, replay=False):
+                lk, _ = model_api.forward(server.params[z], batch, cfg)
+            with plain_attention(), moe_plans(plans, replay=True):
                 lp, _ = model_api.forward(server.params[z], batch, cfg)
         check(bool(torch.isfinite(lk).all()), f"{tag}: {cfg.name}: non-finite logits")
         err = (lk - lp).abs().max().item()
         agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean().item())
         line = (f"{tag}: stage {i} batch {k} ({cfg.name}, {len(tokens)} requests) kernel vs "
-                f"plain attention logits max|diff| {err:.3e} (tol {LOGIT_TOL}), argmax "
-                f"agreement {agree:.4f}")
+                f"plain attention logits{' (MoE plans replayed)' if plans else ''} "
+                f"max|diff| {err:.3e} (tol {LOGIT_TOL}), argmax agreement {agree:.4f}")
         if zk == z:
             same = float((lk.argmax(-1).cpu().numpy() == out).mean())
             line += f", served tokens reproduced {same:.4f}"
@@ -1091,21 +1158,25 @@ def phase_forecast() -> dict:
 
 
 def fill_cache(cache: dict, gen) -> None:
-    """Random self-attention KV in place, and a different number of valid
-    slots per row (17, 22, 27, 32, 5, ... of C = 32): the step's attention
-    then depends on q, which it does not over the grid's one valid slot."""
+    """Random self-attention KV in place (and a hybrid's SSM state and conv
+    tails), and a different number of valid slots per row (17, 22, 27, 32,
+    5, ... of C = 32): the step's attention then depends on q, which it
+    does not over the grid's one valid slot."""
     C = cache["k"].shape[2]                          # [L, B, C, kv, hd]
-    for name in ("k", "v"):
+    for name in ("k", "v", "ssm", "conv"):
+        if name not in cache:
+            continue
         t = cache[name]
         t.copy_(torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype))
     cache["pos"].copy_((torch.arange(len(cache["pos"]), device="cuda") * 5 + 16) % C)
 
 
-def graph_checks(ex) -> None:
+def graph_checks(ex, phase: str = "calibrate") -> None:
     """Every captured step of the grid, replayed, against the same step run
     eagerly (the same kernels: equal) and run eagerly on the plain attention
     path (the kernels against their plain versions inside full-depth bf16
-    and int8 steps, within bf16 rounding: TOL[bf16] of max(1, max |logit|)).
+    and int8 steps, within bf16 rounding: TOL[bf16] of max(1, max |logit|);
+    a MoE's plain step replays the eager step's dispatch plans, moe_plans).
     First at the grid's own state, one valid slot per row; then with
     random caches and several valid slots (fill_cache), attention archs
     only. Rewrites the entries' caches: run it last."""
@@ -1120,22 +1191,24 @@ def graph_checks(ex) -> None:
                     continue                         # xLSTM: no attention cache
                 fill_cache(entry.cache, gen)
             graph = entry.replay()[0].float().clone()
-            eager = entry.eager()[0].float()
-            with plain_attention():
+            plans = []
+            with moe_plans(plans, replay=False):
+                eager = entry.eager()[0].float()
+            with plain_attention(), moe_plans(plans, replay=True):
                 plain = entry.eager()[0].float()
             scale = max(1.0, plain.abs().max().item())
             errs = ((graph - eager).abs().max().item() / scale,
                     (graph - plain).abs().max().item() / scale)
             tag = f"{key.arch}:{key.quant} b{key.batch} {state}"
-            check(bool(torch.isfinite(graph).all()), f"calibrate: {tag}: non-finite logits")
+            check(bool(torch.isfinite(graph).all()), f"{phase}: {tag}: non-finite logits")
             check(errs[0] < tol and errs[1] < tol,
-                  f"calibrate: {tag}: graph logits off the eager step's by {errs[0]}, "
+                  f"{phase}: {tag}: graph logits off the eager step's by {errs[0]}, "
                   f"off the plain attention path's by {errs[1]}")
             w = worst.setdefault((key.arch, key.quant, state), [0.0, 0.0, []])
             w[0], w[1] = max(w[0], errs[0]), max(w[1], errs[1])
             w[2].append(key.batch)
     for (arch, quant, state), (e_eager, e_plain, batches) in worst.items():
-        print(f"calibrate: {arch}:{quant} {state} state, b = {sorted(batches)}: graph vs "
+        print(f"{phase}: {arch}:{quant} {state} state, b = {sorted(batches)}: graph vs "
               f"eager logits max rel diff {e_eager:.3e}, graph vs plain attention path "
               f"{e_plain:.3e} (tol {tol}), all finite", flush=True)
 
@@ -1167,7 +1240,7 @@ def phase_calibrate() -> dict:
           f"calibrate: hit_rate_repeat {payload['cache']['hit_rate_repeat']} < 0.9")
     for row in payload["rows"]:
         cfg = ex.arch_config(row["arch"])
-        want = 0 if cfg.family == "ssm" else cfg.n_layers
+        want = attention_layers(cfg)
         check(row["launches"]["decode_attention"] == want and
               row["launches"]["flash_attention"] == 0,
               f"calibrate: {row['arch']} b{row['batch']} captured launches {row['launches']}")
@@ -1237,6 +1310,202 @@ def phase_calibrate() -> dict:
     return {k: grid_counts[k] + loop_counts[k] + cycle_counts[k] for k in grid_counts}
 
 
+FAMILY_SERVE = (("greedy", 3, 60, False), ("random", 2, 30, True))  # controller, seed, horizon,
+                                                                    # every variant executed
+GRAPH_ARCHS = ("granite-moe-3b-a800m", "zamba2-2.7b")
+BF16_ARCHS = ("granite-3-8b", "llava-next-mistral-7b")   # paper-4stage's stage 3
+BF16_DECODE_STEPS = 8
+
+
+def weights_gib(models) -> float:
+    return sum(p.numel() * p.element_size() for m in models for p in m.parameters()) / 2**30
+
+
+def held_rel(kernel: torch.Tensor, plain: torch.Tensor, what: str) -> float:
+    """max |kernel - plain| over max(1, max |plain|), checked against
+    TOL[bf16]: bf16 rounding through a full-depth model (as graph_checks)."""
+    err = ((kernel.float() - plain.float()).abs().max() / max(
+        1.0, plain.float().abs().max().item())).item()
+    check(bool(torch.isfinite(kernel.float()).all()), f"families: {what}: non-finite")
+    check(err < TOL[torch.bfloat16], f"families: {what}: kernel path off the plain "
+          f"attention path by {err} (rel)")
+    return err
+
+
+def launched(counts: dict, fn, *args):
+    """``fn(*args)``, adding the kernel launches it made to ``counts``."""
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    out = fn(*args)
+    after = ops.launch_counts()
+    for k in counts:
+        counts[k] += after[k] - before[k]
+    return out
+
+
+def bf16_stage() -> dict:
+    """paper-4stage's stage 3 at full width in bf16, through ArchConfig.dtype:
+    one StageServer over granite-3-8b and llava-next-mistral-7b. Each
+    variant: execute on B = 1 and 4 (served tokens reproduced, logits held
+    against the plain attention path), a prefill through make_prefill_step
+    (B = 1; llava's S = 576 patches + 32 tokens), then BF16_DECODE_STEPS
+    decode steps through make_serve_step from that cache, greedy on the
+    kernel path, the plain path fed the same tokens. Returns the launches
+    of the driven calls (execute, prefill, decode), not of the comparisons."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import api as model_api
+    from repro_torch.models import steps
+    from repro_torch.models.config import InputShape
+    from repro_torch.serving import StageServer
+
+    variants = [ARCHS[n].replace(dtype="bfloat16") for n in BF16_ARCHS]
+    t0 = time.perf_counter()
+    server = StageServer("stage3-bf16", variants, seq_len=32, device="cuda")
+    torch.cuda.synchronize()
+    print(f"families: built {list(BF16_ARCHS)} at full width in bf16 in "
+          f"{time.perf_counter() - t0:.1f}s: {weights_gib(server.params):.2f} GiB of "
+          f"weights", flush=True)
+    rng = np.random.default_rng(18)
+    counts = {"flash_attention": 0, "decode_attention": 0}
+    for z, cfg in enumerate(variants):
+        model = server.params[z]
+        for B in (1, 4):
+            toks = rng.integers(0, cfg.vocab, (B, 32)).astype(np.int32)
+            before = counts["flash_attention"]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = launched(counts, server.execute, z, toks)
+            wall = time.perf_counter() - t
+            check(counts["flash_attention"] - before == cfg.n_layers,
+                  f"families: {cfg.name} B{B}: flash launches per forward")
+            batch = server._make_batch(toks, cfg)
+            with torch.inference_mode():
+                lk, _ = model_api.forward(model, batch, cfg)
+                with plain_attention():
+                    lp, _ = model_api.forward(model, batch, cfg)
+            same = float((lk.argmax(-1).cpu().numpy() == out).mean())
+            check(same == 1.0, f"families: {cfg.name} B{B}: served tokens not reproduced")
+            err = held_rel(lk, lp, f"{cfg.name} B{B} execute")
+            print(f"families: {cfg.name} bf16 execute B{B}: output {tuple(out.shape)} in "
+                  f"{wall * 1e3:.3f} ms wall (first call of the shape included); logits vs "
+                  f"plain attention max rel diff {err:.3e} (tol {TOL[torch.bfloat16]}), "
+                  f"served tokens reproduced {same:.4f}", flush=True)
+        # prefill, then decode from its cache
+        toks = rng.integers(0, cfg.vocab, (1, 32)).astype(np.int32)
+        batch = server._make_batch(toks, cfg)
+        S = batch["tokens"].shape[1] + (cfg.n_patches if cfg.family == "vlm" else 0)
+        prefill = steps.make_prefill_step(cfg)
+        with torch.inference_mode():
+            last_k, pre = launched(counts, prefill, model, batch)
+            with plain_attention():
+                last_p, pre_p = prefill(model, batch)
+        check(pre["k"].shape[2] == S and pre["pos"].tolist() == [S],
+              f"families: {cfg.name} prefill cache {tuple(pre['k'].shape)}, pos "
+              f"{pre['pos'].tolist()}")
+        e_last = held_rel(last_k, last_p, f"{cfg.name} prefill logits")
+        e_kv = max(held_rel(pre[n], pre_p[n], f"{cfg.name} prefill {n}") for n in ("k", "v"))
+        C = 64 * -(-(S + BF16_DECODE_STEPS) // 64)
+        shape = InputShape(f"decode_c{C}", C, 1, "decode")
+        serve_step = steps.make_serve_step(cfg, shape)
+        caches = []
+        for _ in range(2):
+            cache = model_api.init_cache(cfg, 1, C, device="cuda")
+            cache["k"][:, :, :S], cache["v"][:, :, :S] = pre["k"], pre["v"]
+            cache["pos"].copy_(pre["pos"])
+            caches.append(cache)
+        tok = last_k.argmax(-1, keepdim=True)
+        e_dec, step_s = 0.0, []
+        before = counts["decode_attention"]
+        for i in range(BF16_DECODE_STEPS):
+            with torch.inference_mode():
+                t = time.perf_counter()
+                lk, caches[0] = launched(counts, serve_step, model, {"tokens": tok},
+                                         caches[0])
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+                with plain_attention():
+                    lp, caches[1] = serve_step(model, {"tokens": tok}, caches[1])
+            e_dec = max(e_dec, held_rel(lk, lp, f"{cfg.name} decode step {i}"))
+            tok = lk[:, -1].argmax(-1, keepdim=True)
+        n_dec = counts["decode_attention"] - before
+        check(n_dec == BF16_DECODE_STEPS * cfg.n_layers,
+              f"families: {cfg.name}: {n_dec} decode launches")
+        check(caches[0]["pos"].tolist() == [S + BF16_DECODE_STEPS],
+              f"families: {cfg.name}: pos {caches[0]['pos'].tolist()} after decode")
+        print(f"families: {cfg.name} bf16 prefill B1 S{S}: last logits vs plain max rel "
+              f"diff {e_last:.3e}, k/v cache {e_kv:.3e}; {BF16_DECODE_STEPS} decode steps "
+              f"over C = {C} (eager, synchronised ms {[round(x * 1e3, 3) for x in step_s]}): "
+              f"logits vs plain max rel diff {e_dec:.3e} (tol {TOL[torch.bfloat16]}); "
+              f"{n_dec} decode launches", flush=True)
+    return counts
+
+
+def phase_families() -> dict:
+    """serve3's stage 2 families (granite-moe, zamba2) and paper-4stage's
+    stage 3 (granite-3-8b, llava) on the card: the registered serve3 served
+    live at full width in f32 under greedy (60 s) and random (30 s, every
+    variant of every stage live) with the runtime phase's checks; the two
+    stage-3 archs at full width in bf16 (bf16_stage); graph-captured decode
+    steps of granite-moe and zamba2 in bf16 and int8 at b = 1 and 32, held
+    against their eager steps and the plain attention path."""
+    from dataclasses import replace
+
+    from repro_torch import api
+    from repro_torch.cluster import executor
+
+    counts = {"flash_attention": 0, "decode_attention": 0}
+    for controller, seed, horizon, every in FAMILY_SERVE:
+        spec = api.ExperimentSpec(
+            pipeline=api.get_pipeline("serve3"),
+            scenario=replace(api.get_scenario("bursty"), seed=3, horizon=horizon),
+            controller=replace(api.get_controller(controller), seed=seed),
+            backend="runtime", real=True)
+        virtual = api.Session(replace(spec, real=False)).serve()
+        sess = api.Session(spec, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        rep, c = serve_live(sess, virtual, f"families-serve3-{controller}", all_variants=every)
+        s = rep["summary"]
+        print(f"families: serve3 {controller} {horizon} s: {s['served']}/{s['submitted']} "
+              f"served live at full width in f32, {weights_gib(m for srv in sess.servers for m in srv.params):.2f} "
+              f"GiB of weights, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; virtual p50 "
+              f"{s['p50']:.6f} s, p99 {s['p99']:.6f} s", flush=True)
+        for k in counts:
+            counts[k] += c[k]
+        del sess, rep
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for k, n in bf16_stage().items():
+        counts[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ex = executor.StageExecutor("cuda", seq_len=32)
+    for arch in GRAPH_ARCHS:
+        cfg = ex.arch_config(arch)
+        for quant in ("bf16", "int8"):
+            for b in (1, 32):
+                t = launched(counts, ex.measure, arch, b, quant)
+                check(t.launches == {"flash_attention": 0,
+                                     "decode_attention": attention_layers(cfg)},
+                      f"families: {arch}:{quant} b{b} captured launches {t.launches}")
+                print(f"families: {arch}:{quant} b{b}: graph replay {t.latency_s * 1e3:.4f} "
+                      f"ms, eager {t.eager_latency_s * 1e3:.4f} ms (min of 5), capture "
+                      f"{t.compile_s:.3f} s, launches per step {t.launches}, "
+                      f"{t.bytes / 1e9:.4f} GB and {t.flops / 1e9:.3f} GFLOP a step, "
+                      f"bound {t.bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)", flush=True)
+    for arch in GRAPH_ARCHS:
+        for b in (1, 32):
+            entry, _ = ex.compiled_step(arch, b, "bf16")
+            profiled(f"{arch}:bf16 b{b} graph replay", entry.replay, "families")
+            profiled(f"{arch}:bf16 b{b} eager step", entry.eager, "families")
+    del entry
+    graph_checks(ex, "families")
+    del ex
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
@@ -1263,27 +1532,29 @@ def main():
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     sass_check()
 
-    summary = phase_kernels(Timer())
-    serve_counts, stage = phase_serve()
-    decode_counts = phase_decode(stage.params[0])
+    def timed(name, fn, *args):
+        gc.collect()
+        torch.cuda.empty_cache()    # free the earlier phase's models first
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
+    summary = timed("kernels", phase_kernels, Timer())
+    serve_counts, stage = timed("serve", phase_serve)
+    decode_counts = timed("decode", phase_decode, stage.params[0])
     del stage                       # the runtime phase builds its own models
-    gc.collect()
-    torch.cuda.empty_cache()
-    runtime_counts = phase_runtime()
-    gc.collect()
-    torch.cuda.empty_cache()
-    opd_counts = phase_opd()
-    gc.collect()
-    torch.cuda.empty_cache()
-    forecast_counts = phase_forecast()
-    gc.collect()
-    torch.cuda.empty_cache()
-    calibrate_counts = phase_calibrate()
+    runtime_counts = timed("runtime", phase_runtime)
+    opd_counts = timed("opd", phase_opd)
+    forecast_counts = timed("forecast", phase_forecast)
+    calibrate_counts = timed("calibrate", phase_calibrate)
+    families_counts = timed("families", phase_families)
 
     kernels = []
     for name in build.KERNELS:
         launches = (serve_counts[name] + decode_counts[name] + runtime_counts[name]
-                    + opd_counts[name] + forecast_counts[name] + calibrate_counts[name])
+                    + opd_counts[name] + forecast_counts[name] + calibrate_counts[name]
+                    + families_counts[name])
         check(launches > 0, f"{name} never launched on the main path")
         row = summary[name]
         src, replaces = SOURCES[name]

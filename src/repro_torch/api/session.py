@@ -25,9 +25,8 @@ run's virtual-time results equal those of ``real=False``.
 learned controllers and forecasters train on the fleet session's device.
 
 Not ported yet, and raising rather than running something else: training
-on the runtime twin (``train_backend="runtime"``, ROADMAP Queue 1 item 8),
-``debug_checkify`` (item 13) and live stages of a family without model code
-(moe, vlm, hybrid: item 11 part B).
+on the runtime twin (``train_backend="runtime"``, ROADMAP Queue 1 item 8)
+and ``debug_checkify`` (item 13).
 """
 from __future__ import annotations
 
@@ -51,21 +50,9 @@ _TRAINABLE = ("opd", "proactive")
 def build_servers(spec: ExperimentSpec, *, device="cuda", smoke: bool = False):
     """One live ``StageServer`` per stage on ``device``, at full width.
     ``smoke=True`` builds the archs' reduced configs instead, as the
-    reference's CPU executors do; only the CPU tests ask for it. A stage
-    whose family has no model code in the port raises before any model is
-    built: it is never skipped or served analytically instead."""
+    reference's CPU executors do; only the CPU tests ask for it."""
     from repro_torch.configs import ARCHS
-    from repro_torch.models.api import PORTED_FAMILIES
     from repro_torch.serving.engine import StageServer
-    for i, names in enumerate(spec.pipeline.stages):
-        for name in names:
-            family = ARCHS[name].family
-            if family not in PORTED_FAMILIES:
-                raise NotImplementedError(
-                    f"pipeline {spec.pipeline.name!r} stage {i}: arch {name!r} "
-                    f"(family {family!r}) has no model code in the port yet, so "
-                    "real=True cannot serve it (ROADMAP Queue 1 item 11 part B, "
-                    "remaining model families)")
     return [StageServer(f"stage{i}",
                         [ARCHS[n].smoke() if smoke else ARCHS[n] for n in names],
                         seq_len=spec.seq_len, seed=i, device=device)

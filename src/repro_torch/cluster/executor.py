@@ -48,6 +48,7 @@ from repro_torch.nn.linear import Embedding
 from repro_torch.timing import time_fn
 
 QUANT_BITS = {"int8": 8, "int4": 4}
+_STATE_KEYS = ("states", "ssm", "conv")    # recurrent state a decode step reads and rewrites
 CAPTURE_WARMUP = 2                    # eager steps on a side stream before capture
 
 
@@ -58,18 +59,23 @@ def quantize_params(model: torch.nn.Module, quant: str) -> torch.nn.Module:
     max-abs scale and store it in bfloat16 (the measured backend has no
     integer matmul kernels, and the calibration records that truthfully).
     Norm gains and embeddings are included, as in the reference. Where the
-    reference stacks a family's layers on a leading [L, ...] axis
-    (``stacked_layers`` on the model: dense, audio), one leaf holds a
-    parameter of every layer, so its layers share one scale here too."""
+    reference stacks a family's layers on leading axes (``stacked_layers``
+    on the model maps a ModuleList's name to the number of stacked axes:
+    ``layers`` [L, ...] of the decoder families and audio, zamba's
+    ``mamba_layers`` [G, attn_every, ...]), one leaf holds a parameter of
+    every layer, so its layers share one scale here too. A MoE's stacked
+    experts are one parameter, hence one scale, as in the reference."""
     if quant != "bf16" and quant not in QUANT_BITS:
         raise ValueError(f"unknown quant {quant!r}; one of bf16, "
                          f"{', '.join(QUANT_BITS)}")
     leaves: dict[str, list] = {}
-    stacked = getattr(model, "stacked_layers", False)
+    stacked = getattr(model, "stacked_layers", {})
     for name, p in model.named_parameters():
         if p.is_floating_point():
-            if stacked and name.startswith("layers."):
-                name = "layers.*." + name.split(".", 2)[2]
+            head, _, rest = name.partition(".")
+            axes = stacked.get(head, 0)
+            if axes:
+                name = ".".join([head] + ["*"] * axes + rest.split(".", axes)[axes:])
             leaves.setdefault(name, []).append(p)
     with torch.no_grad():
         for params in leaves.values():
@@ -184,11 +190,12 @@ def _nbytes(t: torch.Tensor) -> int:
 def step_bytes(model: torch.nn.Module, cache: dict, batch: int, logits) -> float:
     """Bytes one decode step must move, each read once and each write once:
     every parameter (only ``batch`` rows of an embedding table); of the
-    self-attention KV (``k``/``v`` [L, B, C, kv, hd]) the valid slots read
-    (``min(pos + 1, C)`` per row: the decode kernel skips masked tiles) and
-    the new slot written; the whole recurrent state (``states``) read and
-    written; whisper's cross-attention KV (``ck``/``cv``) read whole; and
-    the logits written."""
+    self-attention KV (``k``/``v`` [L, B, C, kv, hd], zamba's [G, ...]) the
+    valid slots read (``min(pos + 1, C)`` per row: the decode kernel skips
+    masked tiles) and the new slot written; the whole recurrent state (the
+    xLSTM's ``states``, zamba's ``ssm`` and ``conv``) read and written;
+    whisper's cross-attention KV (``ck``/``cv``) read whole; and the logits
+    written."""
     tables = [m.e for m in model.modules() if isinstance(m, Embedding)]
     ids = {id(e) for e in tables}
     total = sum(_nbytes(p) for p in model.parameters() if id(p) not in ids)
@@ -202,7 +209,7 @@ def step_bytes(model: torch.nn.Module, cache: dict, batch: int, logits) -> float
                 valid = int(torch.clamp(cache["pos"] + 1, max=t.shape[2]).sum())
                 total += (valid + t.shape[1]) * slot
             else:
-                total += _nbytes(t) * (2 if key == "states" else 1)
+                total += _nbytes(t) * (2 if key in _STATE_KEYS else 1)
     return float(total + _nbytes(logits))
 
 

@@ -1,5 +1,6 @@
-"""Family-dispatched model API (the dense, audio and ssm families are
-ported so far).
+"""Family-dispatched model API: every family of ``ARCHS`` (dense, moe and
+vlm on ``decoder``, audio on ``whisper``, ssm on ``xlstm_lm``, hybrid on
+``zamba``).
 
     init_model(seed, cfg, device=)            -> model (nn.Module)
     forward(model, batch, cfg, ...)           -> (logits, aux)
@@ -8,22 +9,18 @@ ported so far).
 """
 from __future__ import annotations
 
-from repro_torch.models import decoder, whisper, xlstm_lm
+from repro_torch.models import decoder, whisper, xlstm_lm, zamba
 from repro_torch.models.config import ArchConfig
 
 
-# families with model code in the port; the rest (moe, vlm, hybrid) arrive
-# with ROADMAP Queue 1 item 11 part B (remaining model families)
-_MODULES = {"dense": decoder, "audio": whisper, "ssm": xlstm_lm}
-PORTED_FAMILIES = tuple(_MODULES)
-
-
 def _mod(cfg: ArchConfig):
-    if cfg.family in PORTED_FAMILIES:
-        return _MODULES[cfg.family]
-    raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-        "Queue 1 item 11 part B, remaining model families)")
+    if cfg.family == "audio":
+        return whisper
+    if cfg.family == "hybrid":
+        return zamba
+    if cfg.family == "ssm":
+        return xlstm_lm
+    return decoder          # dense | moe | vlm
 
 
 def init_model(seed: int, cfg: ArchConfig, **kw):

@@ -3,11 +3,15 @@
 The reference's parameter pytree arrives as nested dicts of NumPy arrays,
 what ``jax.tree.map(np.asarray, params)`` gives; this module never imports
 jax. Layer leaves are stacked on a leading [L, ...] axis there and are
-unstacked into the port's ``layers`` ModuleList here; a Python list of
-subtrees (the policy's ``heads``, a ResMLP's ``blocks``) fills a ModuleList
-entry by entry. Linear weights keep the reference's [in, out] layout, so no
-leaf is transposed. The same walk carries the dense, audio (whisper, layers
-stacked) and ssm (xLSTM, a list of unlike layers) families.
+unstacked into the port's ``layers`` ModuleList here (zamba's
+``mamba_layers``, stacked on two axes, into a ModuleList of ModuleLists); a
+Python list of subtrees (the policy's ``heads``, a ResMLP's ``blocks``)
+fills a ModuleList entry by entry. Linear weights keep the reference's
+[in, out] layout, so no leaf is transposed, and a MoE's stacked expert
+leaves ``[E_phys, ...]`` stay stacked parameters. The same walk carries
+every family: dense, moe (padded experts, the router; llama4's ``sub{i}``
+blocks), vlm (``vis_proj``), audio (whisper, layers stacked), ssm (xLSTM, a
+list of unlike layers) and hybrid (zamba).
 """
 from __future__ import annotations
 
@@ -29,9 +33,7 @@ def _load(module: nn.Module, tree: dict, prefix: str, loaded: set):
         if isinstance(val, dict):
             child = getattr(module, key)
             if isinstance(child, nn.ModuleList):
-                for i, sub in enumerate(child):
-                    _load(sub, {k: _index(v, i) for k, v in val.items()},
-                          f"{name}.{i}.", loaded)
+                _load_stacked(child, val, name, loaded)
             else:
                 _load(child, val, f"{name}.", loaded)
             continue
@@ -55,6 +57,18 @@ def _load(module: nn.Module, tree: dict, prefix: str, loaded: set):
         loaded.add(name)
 
 
+def _load_stacked(modules: nn.ModuleList, tree: dict, name: str, loaded: set):
+    """A subtree whose leaves are stacked on a leading axis, one entry per
+    module; a ModuleList of ModuleLists takes the next axis too (zamba's
+    ``mamba_layers`` [G, attn_every, ...])."""
+    for i, sub in enumerate(modules):
+        subtree = _index(tree, i)
+        if isinstance(sub, nn.ModuleList):
+            _load_stacked(sub, subtree, f"{name}.{i}", loaded)
+        else:
+            _load(sub, subtree, f"{name}.{i}.", loaded)
+
+
 def _index(tree, i):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
@@ -76,7 +90,8 @@ def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
 def cache_from_numpy(cache, *, device="cpu"):
     """A reference cache as NumPy arrays -> the port's cache of tensors on
     ``device``, with the same nesting: the dense family's ``k``/``v``
-    [L, B, C, kv, hd], whisper's ``ck``/``cv`` besides, the xLSTM's list of
+    [L, B, C, kv, hd], whisper's ``ck``/``cv`` besides, zamba's ``k``/``v``
+    [G, B, C, kv, hd] with its ``ssm``/``conv`` states, the xLSTM's list of
     per-layer state dicts, and ``pos`` [B] as int32."""
     if isinstance(cache, dict):
         return {k: (torch.from_numpy(np.array(v, dtype=np.int32)).to(device)

@@ -1,11 +1,13 @@
-"""Decoder-only LM, dense family.
+"""Decoder-only LM covering the dense, moe and vlm families.
 
 The reference stacks per-layer parameters on a leading [L, ...] axis and
 ``lax.scan``s them; here the layers are an ``nn.ModuleList`` walked by a
-Python loop. The KV cache stays stacked, ``[L, B, C, kv, hd]`` plus
-``pos [B]``, as the reference's ``init_cache`` lays it out. The MoE
-interleave and the VLM prefix come with the remaining model families
-(ROADMAP Queue 1 item 11 part B).
+Python loop. With the MoE interleave (``moe_every`` > 1, llama4) an entry
+of ``layers`` is a ``Block`` of ``moe_every`` sub-layers ``sub0..``, the
+last one MoE, as the reference's scanned block. The KV cache stays
+stacked, ``[L, B, C, kv, hd]`` plus ``pos [B]``, as the reference's
+``init_cache`` lays it out. The vlm family prepends the projected vision
+embeddings ``vision_embeds [B, P, d]`` to the token embeddings.
 """
 from __future__ import annotations
 
@@ -16,9 +18,6 @@ from repro_torch import nn as rnn
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 
-_LATER = ("is not ported yet (ROADMAP Queue 1 item 11 part B, remaining model "
-          "families)")
-
 
 def _norm_fns(cfg: ArchConfig):
     if cfg.norm == "layernorm":
@@ -27,51 +26,77 @@ def _norm_fns(cfg: ArchConfig):
 
 
 def _block_k(cfg: ArchConfig) -> int:
-    """Layers per scanned block in the reference: >1 when MoE is interleaved."""
+    """Layers per scanned block in the reference: >1 when MoE is interleaved
+    (llama4's interleave_moe_layer_step: sub-layers 0..k-2 dense, k-1 MoE)."""
     return cfg.moe_every if (cfg.n_experts and cfg.moe_every > 1) else 1
 
 
-def _check_dense(cfg: ArchConfig):
-    if _block_k(cfg) > 1:
-        raise NotImplementedError(f"{cfg.name}: the MoE interleave {_LATER}")
-    if cfg.family == "vlm":
-        raise NotImplementedError(f"{cfg.name}: the VLM prefix {_LATER}")
-    if cfg.family != "dense" or cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} {_LATER}")
-
-
 class Layer(nn.Module):
-    def __init__(self, cfg: ArchConfig, *, device, generator):
+    """``ln_attn``, ``attn``, ``ln_mlp`` and one of ``moe`` / ``mlp``."""
+
+    def __init__(self, cfg: ArchConfig, *, use_moe: bool, device, generator):
         super().__init__()
         Norm, _ = _norm_fns(cfg)
         dt = cfg.param_dtype
+        kw = dict(dtype=dt, device=device, generator=generator)
         self.ln_attn = Norm(cfg.d_model, dtype=dt, device=device)
         self.attn = rnn.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
-                                  dtype=dt, qkv_bias=cfg.norm == "layernorm",
-                                  device=device, generator=generator)
+                                  qkv_bias=cfg.norm == "layernorm", **kw)
         self.ln_mlp = Norm(cfg.d_model, dtype=dt, device=device)
-        self.mlp = rnn.MLP(cfg.d_model, cfg.d_ff, kind=cfg.mlp_kind, dtype=dt,
-                           device=device, generator=generator)
+        if use_moe:
+            self.moe = rnn.MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, **kw)
+        else:
+            self.mlp = rnn.MLP(cfg.d_model, cfg.d_ff, kind=cfg.mlp_kind, **kw)
+
+
+class Block(nn.Module):
+    """One interleave block: ``sub0 .. sub{k-1}``, the last one MoE."""
+
+    def __init__(self, cfg: ArchConfig, k: int, *, device, generator):
+        super().__init__()
+        for i in range(k):
+            self.add_module(f"sub{i}", Layer(cfg, use_moe=i == k - 1, device=device,
+                                             generator=generator))
 
 
 class DecoderLM(nn.Module):
     """Parameters of one decoder-only LM under the reference's names:
-    ``embed``, ``layers`` (one ``Layer`` per depth), ``ln_f``, ``lm_head``."""
+    ``embed``, ``layers`` (one ``Layer`` per depth, or one ``Block`` per
+    interleave block), ``ln_f``, ``lm_head`` and, for vlm, ``vis_proj``."""
 
-    stacked_layers = True         # the reference stacks them on a leading [L, ...] axis
+    # the reference stacks ``layers`` on one leading axis ([L, ...] or [n_blocks, ...])
+    stacked_layers = {"layers": 1}
 
     def __init__(self, cfg: ArchConfig, *, device, generator):
         super().__init__()
         Norm, _ = _norm_fns(cfg)
         dt = cfg.param_dtype
-        self.embed = rnn.Embedding(cfg.vocab, cfg.d_model, dtype=dt,
-                                   device=device, generator=generator)
-        self.layers = nn.ModuleList(
-            Layer(cfg, device=device, generator=generator)
-            for _ in range(cfg.n_layers))
+        kw = dict(dtype=dt, device=device, generator=generator)
+        self.embed = rnn.Embedding(cfg.vocab, cfg.d_model, **kw)
+        k = _block_k(cfg)
+        if k == 1:
+            self.layers = nn.ModuleList(
+                Layer(cfg, use_moe=cfg.n_experts > 0, device=device, generator=generator)
+                for _ in range(cfg.n_layers))
+        else:
+            if cfg.n_layers % k:
+                raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a multiple "
+                                 f"of moe_every {k}")
+            self.layers = nn.ModuleList(Block(cfg, k, device=device, generator=generator)
+                                        for _ in range(cfg.n_layers // k))
         self.ln_f = Norm(cfg.d_model, dtype=dt, device=device)
-        self.lm_head = rnn.Linear(cfg.d_model, cfg.vocab, dtype=dt,
-                                  device=device, generator=generator)
+        self.lm_head = rnn.Linear(cfg.d_model, cfg.vocab, **kw)
+        if cfg.family == "vlm":
+            # projector stub: vision embeddings arrive pre-projected at d_model
+            self.vis_proj = rnn.Linear(cfg.d_model, cfg.d_model, **kw)
+
+
+def _sub_layers(cfg: ArchConfig, lp):
+    """[(layer, use_moe)] of one entry of ``layers``."""
+    k = _block_k(cfg)
+    if k == 1:
+        return [(lp, cfg.n_experts > 0)]
+    return [(getattr(lp, f"sub{i}"), i == k - 1) for i in range(k)]
 
 
 def init_model(seed: int, cfg: ArchConfig, *, device="cuda") -> DecoderLM:
@@ -79,7 +104,6 @@ def init_model(seed: int, cfg: ArchConfig, *, device="cuda") -> DecoderLM:
     distributions (lecun-normal linears, 0.02 embedding, unit norms). The
     bits differ from ``jax.random``; parity tests copy the JAX weights in
     with ``models.convert.load_jax_params``."""
-    _check_dense(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -87,37 +111,60 @@ def init_model(seed: int, cfg: ArchConfig, *, device="cuda") -> DecoderLM:
 
 
 def embed_inputs(params: DecoderLM, batch, cfg: ArchConfig):
-    """tokens [B, S] -> h [B, S, d]."""
-    _check_dense(cfg)
-    return rnn.embedding(params.embed, batch["tokens"])
+    """tokens [B, S] (+ vision_embeds [B, P, d] for vlm) -> h [B, S_total, d]."""
+    h = rnn.embedding(params.embed, batch["tokens"])
+    if cfg.family == "vlm":
+        vis = rnn.linear(params.vis_proj, batch["vision_embeds"].to(h.dtype))
+        h = torch.cat([vis, h], dim=1)
+    return h
+
+
+def _zero_aux(device):
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"lb_loss": zero, "dropped_frac": zero}
+
+
+def _mean_aux(auxs: list[dict]) -> dict:
+    return {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
 
 
 def forward(params: DecoderLM, batch, cfg: ArchConfig, *, window=None,
             shard_h=None, collect_cache: bool = False, last_only: bool = False,
             return_hidden: bool = False):
     """Full-sequence forward -> (logits, aux[, cache]). ``last_only``
-    computes logits for the final position only. ``shard_h`` (and
-    ``cfg.remat``) are the reference's sharding and training concerns; they
-    are accepted and ignored."""
+    computes logits for the final position only. aux is the mean over
+    layers (and over an interleave block's sub-layers first, as the
+    reference) of the MoE load-balance loss and dropped fraction, zero for
+    a dense layer. ``shard_h`` (and ``cfg.remat``) are the reference's
+    sharding and training concerns; they are accepted and ignored."""
     h = embed_inputs(params, batch, cfg)
     B, S_total = h.shape[:2]
     _, norm = _norm_fns(cfg)
-    ks, vs = [], []
+    ks, vs, auxs = [], [], []
+    dense_aux = _zero_aux(h.device)
     for lp in params.layers:
-        a, (k, v) = rnn.attention_prefill(
-            lp.attn, norm(lp.ln_attn, h),
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-            rope_theta=cfg.rope_theta, window=window, use_flash=cfg.use_flash)
-        h = h + a
-        h = h + rnn.mlp(lp.mlp, norm(lp.ln_mlp, h), kind=cfg.mlp_kind)
-        if collect_cache:
-            ks.append(k)
-            vs.append(v)
+        sub_aux = []
+        for sp, use_moe in _sub_layers(cfg, lp):
+            a, (k, v) = rnn.attention_prefill(
+                sp.attn, norm(sp.ln_attn, h),
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+                rope_theta=cfg.rope_theta, window=window, use_flash=cfg.use_flash)
+            h = h + a
+            x = norm(sp.ln_mlp, h)
+            if use_moe:
+                m, aux = rnn.moe(sp.moe, x, top_k=cfg.top_k)
+            else:
+                m, aux = rnn.mlp(sp.mlp, x, kind=cfg.mlp_kind), dense_aux
+            h = h + m
+            sub_aux.append(aux)
+            if collect_cache:
+                ks.append(k)
+                vs.append(v)
+        auxs.append(sub_aux[0] if len(sub_aux) == 1 else _mean_aux(sub_aux))
     if last_only:
         h = h[:, -1:]
     h = norm(params.ln_f, h)
-    zero = torch.zeros((), dtype=torch.float32, device=h.device)
-    aux = {"lb_loss": zero, "dropped_frac": zero}
+    aux = _mean_aux(auxs)
     if return_hidden:
         return h, aux
     logits = rnn.linear(params.lm_head, h)
@@ -142,21 +189,26 @@ def init_cache(cfg: ArchConfig, batch: int, context: int, *, dtype=None,
 def decode_step(params: DecoderLM, batch, cache, cfg: ArchConfig, *,
                 ring: bool = False):
     """One-token decode. batch["tokens"] [B, 1]. Returns (logits, new_cache).
-    Each layer writes its new k/v slot in place into ``cache["k"][l]`` /
-    ``cache["v"][l]``; the returned cache holds the same tensors and
-    ``pos + 1``."""
-    _check_dense(cfg)
+    Layer l (block-major through an interleave) writes its new k/v slot in
+    place into ``cache["k"][l]`` / ``cache["v"][l]``; the returned cache
+    holds the same tensors and ``pos + 1``."""
     h = rnn.embedding(params.embed, batch["tokens"])
     pos = cache["pos"]
     _, norm = _norm_fns(cfg)
-    for i, lp in enumerate(params.layers):
+    layers = [sl for lp in params.layers for sl in _sub_layers(cfg, lp)]
+    for i, (lp, use_moe) in enumerate(layers):
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i], "pos": pos}
         a, _ = rnn.attention_decode(
             lp.attn, norm(lp.ln_attn, h), layer_cache,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
             rope_theta=cfg.rope_theta, ring=ring, use_flash=cfg.use_flash)
         h = h + a
-        h = h + rnn.mlp(lp.mlp, norm(lp.ln_mlp, h), kind=cfg.mlp_kind)
+        x = norm(lp.ln_mlp, h)
+        if use_moe:
+            m, _ = rnn.moe(lp.moe, x, top_k=cfg.top_k, need_aux=False)
+        else:
+            m = rnn.mlp(lp.mlp, x, kind=cfg.mlp_kind)
+        h = h + m
     h = norm(params.ln_f, h)
     logits = rnn.linear(params.lm_head, h)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

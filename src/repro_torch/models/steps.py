@@ -4,7 +4,7 @@
 the training slice (ROADMAP Queue 1 item 12)."""
 from __future__ import annotations
 
-from repro_torch.models import api
+from repro_torch.models import api, decoder, whisper
 from repro_torch.models.config import LONG_WINDOW, ArchConfig, InputShape
 
 
@@ -26,12 +26,22 @@ def uses_ring(cfg: ArchConfig, shape: InputShape) -> bool:
 
 
 def make_prefill_step(cfg: ArchConfig, *, shard_h=None):
-    """(model, batch) -> (last-token logits, populated cache)."""
+    """(model, batch) -> (last-token logits, populated cache or aux): the
+    decoder families collect their KV cache, whisper prefills its
+    cross-attention cache, and the ssm and hybrid families run the forward
+    only and return its aux, as the reference does."""
 
     def prefill_step(params, batch):
-        logits, _, cache = api.forward(params, batch, cfg, shard_h=shard_h,
-                                       collect_cache=True)
-        return logits[:, -1], cache
+        if cfg.family == "audio":
+            logits, _ = whisper.forward(params, batch, cfg, shard_h=shard_h)
+            cache = whisper.prefill_cache(params, batch, cfg, batch["tokens"].shape[1])
+            return logits[:, -1], cache
+        if cfg.family in ("dense", "moe", "vlm"):
+            logits, _, cache = decoder.forward(params, batch, cfg, shard_h=shard_h,
+                                               collect_cache=True)
+            return logits[:, -1], cache
+        logits, aux = api.forward(params, batch, cfg, shard_h=shard_h)
+        return logits[:, -1], aux
 
     return prefill_step
 

@@ -40,7 +40,7 @@ class WhisperLayer(nn.Module):
 
 
 class Whisper(nn.Module):
-    stacked_layers = True         # the reference stacks them on a leading [L, ...] axis
+    stacked_layers = {"layers": 1}    # the reference stacks them on a leading [L, ...] axis
 
     def __init__(self, cfg: ArchConfig, *, device, generator):
         super().__init__()

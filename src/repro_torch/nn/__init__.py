@@ -13,6 +13,8 @@ from repro_torch.nn.attention import (
     Attention, attention_prefill, attention_decode, make_kv_cache,
     init_cross_attention, cross_attention,
 )
+from repro_torch.nn.moe import MoE, moe
+from repro_torch.nn.mamba2 import Mamba2, mamba2_scan, mamba2_decode, make_mamba_state
 from repro_torch.nn.xlstm import (
     MLSTM, mlstm_parallel, mlstm_chunkwise, mlstm_decode, make_mlstm_state,
     SLSTM, slstm_scan, slstm_decode, make_slstm_state,

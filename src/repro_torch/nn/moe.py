@@ -1,0 +1,148 @@
+"""Top-k mixture-of-experts with capacity-bounded gather dispatch. Port of
+``repro/nn/moe.py``.
+
+Dispatch gathers, per expert, its top-C tokens by gate (``_route``), runs
+the SwiGLU FFN on the stacked expert weights ``[E_phys, d, f]`` and adds
+the gated outputs back in float32 (``_dispatch_compute_combine``): ``[E,
+C]`` indices and ``[E, C, d]`` activations, never a one-hot ``[T, E, C]``
+dispatch tensor. The
+reference's ``shard_map`` paths (expert parallelism over a mesh) compute
+the same function; on one device they are this single path.
+
+Experts >= 16 are padded to a multiple of 16 (``_phys_experts``), as the
+reference lays its leaves out; the router stays at the logical E, so a
+padded expert is never routed to.
+
+Tie order: ``jax.lax.top_k`` puts the lower index first among equal
+values. Equal non-zero gates occur whenever identical tokens pick one
+expert, and then the index decides which token keeps its capacity slot, so
+both selections here are a stable descending sort (``_top_k``), which
+keeps that order; ``torch.topk`` promises none. Routing is discontinuous:
+a choice near a tie (a token's k-th and (k+1)-th expert, or the capacity
+between tokens equal up to rounding, as in a row of one repeated token,
+where attention over equal values gives equal outputs up to the last bit)
+turns on the last bits of the hidden state, which two implementations, or
+two attention paths, do not round alike. Nothing reads back to the host:
+the capacity C is a Python int from the shapes, so a decode step can be
+captured in a CUDA graph.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.nn.linear import Linear, _normal
+
+
+def _phys_experts(n_experts: int) -> int:
+    """Experts >= 16 are padded to a multiple of 16 (the reference's mesh
+    model axis)."""
+    return n_experts if n_experts < 16 else 16 * math.ceil(n_experts / 16)
+
+
+class Experts(nn.Module):
+    """Stacked SwiGLU expert weights: ``wg``/``wu`` [E, d, f], ``wd`` [E, f, d],
+    lecun-normal per expert, as the reference's vmapped ``init_linear``."""
+
+    def __init__(self, dim: int, hidden: int, n_experts: int, *, dtype=torch.float32,
+                 device="cpu", generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.wg = _normal((n_experts, dim, hidden), std=dim ** -0.5, **kw)
+        self.wu = _normal((n_experts, dim, hidden), std=dim ** -0.5, **kw)
+        self.wd = _normal((n_experts, hidden, dim), std=hidden ** -0.5, **kw)
+
+
+class MoE(nn.Module):
+    """``router`` (float32, ``[d, E]``) and ``experts`` (``E_phys`` stacked)."""
+
+    def __init__(self, dim: int, hidden: int, n_experts: int, *, dtype=torch.float32,
+                 device="cpu", generator: torch.Generator | None = None):
+        super().__init__()
+        self.experts = Experts(dim, hidden, _phys_experts(n_experts), dtype=dtype,
+                               device=device, generator=generator)
+        self.router = Linear(dim, n_experts, dtype=torch.float32, device=device,
+                             generator=generator)
+
+
+def _top_k(x, k: int):
+    """(values, indices) of the k largest along the last axis, the lower
+    index first among equal values, as ``jax.lax.top_k``."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(params: MoE, x, *, top_k: int, capacity_factor: float, E_phys: int):
+    """Router + per-(row, expert) top-C dispatch plan -> gsel/tok_idx
+    [B, E_phys, C], probs [B, S, E] and C. Gates come from a one-hot sum over
+    the k choices, as in the reference."""
+    B, S, _ = x.shape
+    E = params.router.w.shape[1]
+    logits = torch.einsum("bsd,de->bse", x.to(torch.float32),
+                          params.router.w.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = _top_k(probs, top_k)                                   # [B,S,k]
+    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    experts = torch.arange(E_phys, device=x.device)
+    onehot = top_e[..., None] == experts                                  # [B,S,k,E+]
+    gates = torch.einsum("bsk,bske->bse", top_p, onehot.to(torch.float32))
+    C = max(1, min(S, int(capacity_factor * S * top_k / E)))
+    gsel, tok_idx = _top_k(gates.transpose(1, 2), C)                      # [B,E+,C]
+    return gsel, tok_idx, probs, C
+
+
+def _expert_ffn(xe, wg, wu, wd):
+    """xe [B, E, C, d] with stacked expert weights [E, d, f] / [E, f, d]."""
+    h = F.silu(torch.einsum("becd,edf->becf", xe, wg))
+    h = h * torch.einsum("becd,edf->becf", xe, wu)
+    return torch.einsum("becf,efd->becd", h, wd)
+
+
+def _dispatch_compute_combine(x, gsel, tok_idx, wg, wu, wd):
+    """Gather tokens per expert, run the FFN, add the gated outputs back.
+    x [B, S, d]; gsel/tok_idx [B, E, C] -> y [B, S, d] (float32).
+
+    The reference scatter-adds. Here an expert's C tokens are distinct, so
+    its outputs are scattered without a collision into a [B, E, S, d]
+    buffer that is then summed over E in a fixed order: the same sum
+    without atomics, so the card gives the same bits on every run."""
+    B, S, d = x.shape
+    E, C = tok_idx.shape[1:]
+    rows = torch.arange(B, device=x.device)[:, None, None]
+    xe = x[rows, tok_idx]                                                 # [B,E,C,d]
+    ye = _expert_ffn(xe, wg.to(xe.dtype), wu.to(xe.dtype), wd.to(xe.dtype))
+    ye = ye * (gsel * (gsel > 0))[..., None].to(ye.dtype)
+    dt = torch.promote_types(ye.dtype, torch.float32)
+    per_expert = torch.zeros((B, E, S, d), dtype=dt, device=x.device)
+    per_expert.scatter_(2, tok_idx[..., None].expand(B, E, C, d), ye.to(dt))
+    return per_expert.sum(dim=1)
+
+
+def _aux(gsel, probs, E: int):
+    """Switch-style load-balance loss + dropped-token fraction. The demand
+    is ``B * S * probs.shape[-1]`` slots, which the reference writes as
+    B·S·E (its comment says B·S·k)."""
+    B, S, _ = probs.shape
+    used = (gsel > 0).to(torch.float32)                                   # [B,E+,C]
+    frac_tokens = used.sum(dim=(0, 2))[:E] / torch.clamp(used.sum(), min=1.0)
+    frac_probs = torch.mean(probs, dim=(0, 1))
+    lb_loss = E * torch.sum(frac_tokens * frac_probs)
+    dropped = 1.0 - used.sum() / max(B * S * probs.shape[-1], 1)
+    return {"lb_loss": lb_loss, "dropped_frac": torch.clamp(dropped, 0.0, 1.0)}
+
+
+def moe(params: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
+        need_aux: bool = True):
+    """x [B, S, d] -> (y [B, S, d] in x's dtype, aux). A decode step passes
+    ``need_aux=False`` and gets ``aux=None``: the reference computes the aux
+    there and drops it, which XLA elides and eager PyTorch would not."""
+    E = params.router.w.shape[1]
+    w = params.experts
+    gsel, tok_idx, probs, _ = _route(params, x, top_k=top_k,
+                                     capacity_factor=capacity_factor,
+                                     E_phys=w.wg.shape[0])
+    y = _dispatch_compute_combine(x, gsel, tok_idx, w.wg, w.wu, w.wd)
+    return y.to(x.dtype), (_aux(gsel, probs, E) if need_aux else None)

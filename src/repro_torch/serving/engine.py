@@ -50,19 +50,25 @@ class StageServer:
             self.replicas = int(replicas)
 
     def _make_batch(self, tokens: np.ndarray, cfg: ArchConfig) -> dict:
-        """Tokens on the device, plus the audio family's stub encoder states
-        [B, enc_len, d], normal with std 0.02 from a generator seeded 1, as
-        the reference draws them from ``PRNGKey(1)`` (the bits differ). vlm
-        inputs never reach here: api.init_model refuses that family when the
-        stage is built (ROADMAP Queue 1 item 11 part B)."""
+        """Tokens on the device, plus the stub frontends' inputs, both f32
+        normal with std 0.02 as the reference draws them: the vlm family's
+        vision embeddings [B, n_patches, d] from a generator seeded 0 (the
+        reference's ``PRNGKey(0)``), the audio family's encoder states
+        [B, enc_len, d] from one seeded 1 (``PRNGKey(1)``). The bits differ
+        from ``jax.random``'s."""
+        B = tokens.shape[0]
         batch = {"tokens": torch.as_tensor(tokens % cfg.vocab, device=self.device)}
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = self._stub_inputs((B, cfg.n_patches, cfg.d_model), 0)
         if cfg.family == "audio":
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(1)
-            batch["enc_states"] = torch.randn(
-                (tokens.shape[0], cfg.enc_len, cfg.d_model), generator=gen,
-                device=self.device, dtype=torch.float32) * 0.02
+            batch["enc_states"] = self._stub_inputs((B, cfg.enc_len, cfg.d_model), 1)
         return batch
+
+    def _stub_inputs(self, shape, seed: int):
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=self.device,
+                           dtype=torch.float32) * 0.02
 
     def execute(self, z: int, tokens: np.ndarray) -> np.ndarray:
         """Run variant ``z`` on tokens [B, S] -> output tokens [B, S] int32,

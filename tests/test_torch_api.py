@@ -310,19 +310,28 @@ def test_unported_options_raise(monkeypatch):
         serve.main(["--fleet", "no-such-fleet"])
 
 
-def test_real_run_of_unported_family_names_the_stage():
-    """serve3's stage 2 (granite-moe, zamba2) has no model code yet: a real
-    run raises before building anything, naming the stage and item 11 part
-    B. serve2's families (audio, ssm) are ported and build."""
+def test_real_run_of_unported_family_names_the_stage(monkeypatch):
+    """serve3's stage 2 (granite-moe, zamba2) has model code now (the name
+    is the test's history): a real run builds all three stages, every
+    request passes through each of them, and the virtual-time results equal
+    those of the same spec with real=False."""
+    from repro_torch.serving import engine
+    rows = {}
+    execute = engine.StageServer.execute
+
+    def counted(self, z, tokens):
+        rows[self.name] = rows.get(self.name, 0) + len(tokens)
+        return execute(self, z, tokens)
+
+    monkeypatch.setattr(engine.StageServer, "execute", counted)
     exp = api.replace(experiment(api, "greedy", "runtime", pipeline="serve3"), real=True)
     sess = api.Session(exp, device="cpu", smoke=True)
-    with pytest.raises(NotImplementedError,
-                       match=r"stage 2: arch 'granite-moe-3b-a800m' .*item 11 part B"):
-        sess.serve()
-    assert sess.servers is None
-    with pytest.raises(NotImplementedError, match="stage 2"):
-        api.build_executors(exp, device="cpu", smoke=True)
-    serve2 = api.replace(experiment(api, "greedy", "runtime", pipeline="serve2"), real=True)
-    servers = api.build_servers(serve2, device="cpu", smoke=True)
-    assert [[c.family for c in s.variants] for s in servers] == [["audio", "ssm"],
-                                                                  ["dense", "dense"]]
+    rep = sess.serve()
+    assert [[c.family for c in s.variants] for s in sess.servers] == [
+        ["ssm", "audio"], ["dense", "dense"], ["moe", "hybrid"]]
+    served = rep["summary"]["served"]
+    assert served > 0 and rows == {f"stage{i}": served for i in range(3)}
+    want = api.Session(api.replace(exp, real=False)).serve()
+    for key in ("summary", "rewards", "configs"):
+        assert virtual(rep)[key] == virtual(want)[key], key
+    assert len(api.build_executors(exp, device="cpu", smoke=True)) == 3

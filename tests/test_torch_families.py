@@ -342,3 +342,19 @@ def test_live_serve2_token_for_token(monkeypatch):
     for (jrid, jout), (trid, tout) in zip(jo, to, strict=True):
         assert trid == jrid and tout.dtype == np.int32 and tout.shape == (2, 32)
         assert np.array_equal(tout, jout), f"request {trid}: stage outputs differ"
+
+
+def test_prefill_step_of_whisper_prefills_the_cross_cache():
+    """audio prefill: the forward's last logits and the cross-attention
+    cache from the encoder states, as the reference's."""
+    from repro.models import steps as jsteps
+    from repro_torch.models import steps
+    jcfg, tcfg, jp, model = pair("whisper-small")
+    jb, tb = batches(tcfg, 2, 6, seed=4)
+    jl, jcache = jsteps.make_prefill_step(jcfg)(jp, jb)
+    with torch.no_grad():
+        tl, tcache = steps.make_prefill_step(tcfg)(model, tb)
+    assert tl.shape == (2, tcfg.vocab) and err(jl, tl) < PLAIN_TOL
+    assert tcache["k"].shape[2] == 6 and tcache["pos"].tolist() == [0, 0]
+    for k in ("ck", "cv"):
+        assert err(jcache[k], tcache[k]) < BLOCK_TOL, k

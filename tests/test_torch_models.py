@@ -140,30 +140,49 @@ def test_ring_serve_step_for_long_decode():
     assert steps.cache_context(tcfg, INPUT_SHAPES["long_500k"]) == LONG_WINDOW
 
 
-PORTED = {"audio": "whisper-small", "ssm": "xlstm-125m"}
+FAMILY_ARCH = {"moe": "granite-moe-3b-a800m", "vlm": "llava-next-mistral-7b",
+               "audio": "whisper-small", "hybrid": "zamba2-2.7b", "ssm": "xlstm-125m"}
+FAMILY_MODULE = {"moe": "decoder", "vlm": "decoder", "audio": "whisper",
+                 "hybrid": "zamba", "ssm": "xlstm_lm"}
 
 
 @pytest.mark.parametrize("family", ["moe", "vlm", "audio", "hybrid", "ssm"])
 def test_other_families_not_ported_yet(family):
-    """moe, vlm and hybrid still raise (item 11 part B); audio and ssm are
-    ported now and build their own model (tests/test_torch_families.py)."""
-    if family in PORTED:
-        cfg = ARCHS[PORTED[family]].smoke()
-        assert family in api.PORTED_FAMILIES
-        model = api.init_model(0, cfg, device="cpu")
-        assert type(model).__module__ == api._mod(cfg).__name__ != decoder.__name__
-        return
-    cfg = ARCHS["llama3.2-1b"].smoke().replace(family=family)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11 part B"):
-        api.init_model(0, cfg, device="cpu")
+    """Every family is ported now (the name is the test's history): each
+    family's smoke config builds the module of its family, with the
+    reference's parameter count (tests/test_torch_{moe,vlm,families,hybrid}.py
+    hold them against it)."""
+    cfg = ARCHS[FAMILY_ARCH[family]].smoke()
+    assert cfg.family == family
+    model = api.init_model(0, cfg, device="cpu")
+    assert type(model).__module__ == api._mod(cfg).__name__
+    assert api._mod(cfg).__name__.rsplit(".", 1)[1] == FAMILY_MODULE[family]
+    jn = sum(x.size for x in jax.tree.leaves(japi.init_model(
+        jax.random.PRNGKey(0), JARCHS[FAMILY_ARCH[family]].smoke())))
+    assert sum(p.numel() for p in model.parameters()) == jn
 
 
 def test_decoder_refuses_moe_interleave_and_vlm():
+    """The decoder takes the MoE interleave now (the name is the test's
+    history): blocks of sub-layers, the last one MoE; and the VLM prefix
+    (``vis_proj``; patches before the text)."""
     cfg = ARCHS["llama3.2-1b"].smoke()
-    with pytest.raises(NotImplementedError, match="MoE interleave"):
-        decoder.init_model(0, cfg.replace(n_experts=4, top_k=1, moe_every=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="VLM prefix"):
-        decoder.init_model(0, cfg.replace(family="vlm"), device="cpu")
+    moe = cfg.replace(n_experts=4, top_k=1, moe_every=2)
+    model = decoder.init_model(0, moe, device="cpu")
+    assert len(model.layers) == 1
+    assert hasattr(model.layers[0].sub0, "mlp") and hasattr(model.layers[0].sub1, "moe")
+    _, tb = tokens(2, 6, cfg.vocab)
+    with torch.no_grad():
+        logits, aux, cache = decoder.forward(model, tb, moe, collect_cache=True)
+    assert logits.shape == (2, 6, cfg.vocab) and cache["k"].shape[0] == moe.n_layers
+    assert float(aux["lb_loss"]) > 0.0
+    vlm = cfg.replace(family="vlm", n_patches=3)
+    model = decoder.init_model(0, vlm, device="cpu")
+    vis = torch.zeros(2, 3, cfg.d_model)
+    with torch.no_grad():
+        logits, _ = decoder.forward(model, {**tb, "vision_embeds": vis}, vlm)
+    assert model.vis_proj.w.shape == (cfg.d_model, cfg.d_model)
+    assert logits.shape == (2, 9, cfg.vocab)
 
 
 def test_init_model_is_seeded_with_reference_distributions():
