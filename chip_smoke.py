@@ -66,7 +66,7 @@ Phases (any failure exits non-zero):
            valid slot and again over random caches with several valid slots;
            then Session.serve of the registered serve2 pipeline, both stages
            live, with perf_source="calibrated" on that table (capacity
-           controller, bursty, seed 3, 120 s): the runtime phase's checks on
+           controller, bursty, seed 3, 60 s): the runtime phase's checks on
            every stage, and the calibrated virtual p50/p99 and cost beside
            the analytic (TPU v5e) run's; then the same spec for 30 s under
            the random controller, which executes every variant of both stages
@@ -82,6 +82,26 @@ Phases (any failure exits non-zero):
            attention path; granite-moe's and zamba2's decode steps captured
            in CUDA graphs (bf16 and int8, b = 1 and 32), profiled, and held
            against their eager steps and the plain attention path
+  twin     the discrete-event runtime twin: Session.train of the registered
+           opd controller with train_backend="runtime" on serve3-hetero
+           (bursty, 25 req/s, 8 envs, 2 episodes), one fixed action sequence
+           replayed through the twin on the card with captured blocks, on the
+           card eagerly (its first 4 intervals), on the CPU and through the
+           NumPy RuntimeEnv (equal served counts and rewards within 1e-5 of
+           the CPU; within 2 requests and 0.15 of RuntimeEnv; captured equal
+           to eager bit for bit), and launch/runtime_train_throughput.py at
+           1, 8 and 32 envs with captured blocks against the RuntimeEnv loop
+  train    launch/train.py with llama3.2-1b at published width and depth
+           (f32, batch 4 x 1024, 3 steps): finite losses, grad_norm > 0,
+           every parameter changed after step 1, step ms, tokens/s, peak
+           memory, one profiled step with _sdpa's share; one --microbatch 2
+           step from the same weights (loss 1e-5 rel, params 1e-4); one step
+           at 2 layers held against the CPU with the card's weights (loss
+           1e-5, grad_norm 1e-4, params 1e-4); both kernel wrappers refuse
+           an input that requires grad; the phase launches no attention
+           kernel (training computes the reference's _sdpa)
+`--phases NAME ...` runs only the named phases after the build, without the
+kernel summary and the device line.
 The kernels phase also holds whisper-small's g = 1 shapes (flash B4 S32
 H12 Hkv12 D64, decode B4 H12 C32) in both dtypes and bf16 q over an f32
 cache (llama3.2-1b's, starcoder2-3b's and whisper-small's decode steps),
@@ -1269,11 +1289,12 @@ def phase_calibrate() -> dict:
     # (c) the whole serve2 loop live on the card's own physics
     calibration.register_table("h100-serve2", table)
     # the registered serve2 pipeline, both stages, on the measured table:
-    # stage1_spec's scenario under the capacity controller
+    # stage1_spec's scenario, cut to 60 s (120 s until PR 18) to keep the
+    # whole script near 800 s, under the capacity controller
     spec = api.ExperimentSpec(
         pipeline=replace(api.get_pipeline("serve2"), perf_source="calibrated",
                          calibration="h100-serve2"),
-        scenario=replace(api.get_scenario("bursty"), seed=3, horizon=120),
+        scenario=replace(api.get_scenario("bursty"), seed=3, horizon=60),
         controller=replace(api.get_controller("capacity"), seed=3),
         backend="runtime", real=True)
     pipe = spec.pipeline.build()
@@ -1506,7 +1527,283 @@ def phase_families() -> dict:
     return counts
 
 
-def main():
+TWIN_SPEC = ("serve3-hetero", "bursty", 25.0)       # pipeline, arrivals, rate (req/s)
+EAGER_STEPS = 4             # intervals of the eager replay held against the captured one
+
+
+def phase_twin() -> dict:
+    """The discrete-event runtime twin on the card: Session.train of the
+    registered opd controller with train_backend="runtime" (serve3-hetero,
+    bursty at 25 req/s, 8 envs, 2 episodes), one fixed action sequence
+    replayed through the twin on the card (captured blocks and eager), on
+    the CPU and through the NumPy RuntimeEnv, and the three num_envs points
+    of launch/runtime_train_throughput.py. Launches no attention kernel."""
+    from dataclasses import replace
+
+    from repro_torch import api
+    from repro_torch.cluster import RuntimeEnv
+    from repro_torch.core import policy, vecenv
+    from repro_torch.core import runtime_vec as rv
+    from repro_torch.core.mdp import QoSWeights
+    from repro_torch.launch import runtime_train_throughput as rtt
+    from repro_torch.serving import make_arrivals
+
+    name, kind, rate = TWIN_SPEC
+    spec = api.ExperimentSpec(
+        pipeline=api.get_pipeline(name),
+        scenario=replace(api.get_scenario(kind), rate=rate, seed=3, horizon=120),
+        controller=replace(api.get_controller("opd"), seed=3, train_episodes=2, num_envs=8,
+                           train_backend="runtime"),
+        backend="runtime")
+    sess = api.Session(spec, device="cuda")
+    stamps = [time.perf_counter()]
+
+    def log(msg):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        print(f"twin: {msg} ({(stamps[-1] - stamps[-2]) * 1e3:.1f} ms)", flush=True)
+
+    sess.train(log=log)
+    tr = sess.trainer
+    hist = tr.history
+    check(tr._vec_runtime is not None and tr._tables.accuracy.is_cuda,
+          "twin: the trainer did not take the runtime twin on the card")
+    check(hist["expert"] == [False, True], f"twin: expert episodes {hist['expert']}")
+    check(all(np.isfinite(hist[k]).all() for k in ("reward", "loss", "value_loss")),
+          "twin: non-finite training history")
+    check(all(p.is_cuda for p in tr.params.parameters()), "twin: policy not on the card")
+    print(f"twin: Session.train opd train_backend=runtime on {name}, {kind} {rate} req/s, "
+          f"{tr.num_envs} envs: episode ms "
+          f"{[round((b - a) * 1e3, 1) for a, b in zip(stamps, stamps[1:])]} "
+          f"(episode 1 on the twin, 2 expert on RuntimeEnv), rewards "
+          f"{[round(r, 4) for r in hist['reward']]}", flush=True)
+
+    # -- one fixed action sequence: the card (captured, eager), the CPU, RuntimeEnv
+    pipe = api.get_pipeline(name).build()
+    n_steps = 12
+    rng = np.random.default_rng(5)
+    sizes = policy.head_sizes(pipe)
+    actions = np.stack([[rng.integers(0, s) for s in sizes]
+                        for _ in range(n_steps)]).astype(np.int32)
+    ep = rv.episode_arrivals(make_arrivals(kind, rate=rate, seed=7), 120)
+    w = QoSWeights()
+    outs = {}
+    # the eager loop replays the first EAGER_STEPS intervals only (a
+    # replay's first k intervals do not depend on the later ones)
+    for tag, dev, capture, steps in (("graph", "cuda", True, n_steps),
+                                     ("eager", "cuda", False, EAGER_STEPS),
+                                     ("cpu", "cpu", False, n_steps)):
+        tables = vecenv.tables_from_pipeline(pipe, device=dev)
+        t = time.perf_counter()
+        outs[tag] = {k: v.cpu() for k, v in rv.replay(
+            tables, ep, torch.from_numpy(actions), n_steps=steps, weights=w,
+            capture=capture).items()}
+        print(f"twin: replay of {steps} intervals on {tag}: "
+              f"{(time.perf_counter() - t) * 1e3:.1f} ms", flush=True)
+    env = RuntimeEnv(pipe, make_arrivals(kind, rate=rate, seed=7), horizon=120)
+    ref_r, ref_c = [], []
+    for a in actions:
+        _, r, _, info = env.step(policy.action_to_config(pipe, a))
+        ref_r.append(float(r))
+        ref_c.append(int(info["processed"]))
+    ref_r, ref_c = np.asarray(ref_r), np.asarray(ref_c)
+    g, c = outs["graph"], outs["cpu"]
+    same_eager = all(torch.equal(g[k][:EAGER_STEPS], outs["eager"][k]) for k in g)
+    r_err = rel_err(c["rewards"], g["rewards"])
+    env_c = int(np.abs(g["completed"].numpy() - ref_c).max())
+    env_r = float(np.abs(g["rewards"].numpy() - ref_r).max())
+    print(f"twin: served per interval card {g['completed'].int().tolist()}, CPU "
+          f"{c['completed'].int().tolist()}, RuntimeEnv {ref_c.tolist()}; rewards card vs "
+          f"CPU max rel err {r_err:.3e} (tol 1e-5); captured == eager bit for bit over "
+          f"{EAGER_STEPS} intervals: {same_eager}; card vs RuntimeEnv: served max diff "
+          f"{env_c} (tol 2), rewards max abs err {env_r:.3e} (tol 0.15)", flush=True)
+    check(torch.equal(g["completed"], c["completed"]), "twin: served counts card != CPU")
+    check(r_err < 1e-5, f"twin: rewards card vs CPU off by {r_err}")
+    check(same_eager, "twin: captured blocks differ from the eager loop")
+    check(env_c <= 2 and env_r < 0.15, "twin: card twin vs RuntimeEnv outside the bounds")
+
+    # -- throughput at 1, 8 and 32 envs against the RuntimeEnv loop
+    # captured blocks only: the eager loop's times come from the launcher's
+    # own run (its replay above is held against the captured one)
+    payload = rtt.run("cuda", horizon=120, reps=2, eager_reps=0, legacy_eps=2,
+                      log=lambda m: print(m, flush=True))
+    os.makedirs("chiprun_out/twin", exist_ok=True)
+    with open("chiprun_out/twin/runtime_train_throughput.json", "w") as fh:
+        json.dump(payload, fh, indent=1, default=float)
+    return {"flash_attention": 0, "decode_attention": 0}
+
+
+TRAIN_ARGS = ["--arch", "llama3.2-1b", "--full", "--batch", "4", "--seq-len", "1024",
+              "--lr", "3e-4", "--device", "cuda"]
+SDPA_BACKWARD = ("BmmBackward0", "SoftmaxBackward0", "MaskedFillBackward0", "DivBackward0")
+
+
+def sdpa_share(fn) -> str:
+    """One call of ``fn`` (a train step) under torch.profiler with
+    ``nn.attention._sdpa`` in a record_function range: the share of the
+    device time in that range (the forward) and in the backward of its
+    ops (bmm, softmax, masked_fill, div autograd nodes)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.nn import attention
+    plain = attention._sdpa
+
+    def ranged(*a, **k):
+        with record_function("_sdpa"):
+            return plain(*a, **k)
+
+    attention._sdpa = ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    finally:
+        attention._sdpa = plain
+    ev = prof.key_averages()
+    # the kernels' own events: an op's self device time repeats its kernels'
+    total = sum(e.self_device_time_total for e in ev if e.device_type.name == "CUDA") / 1e3
+    fwd = sum(e.device_time_total for e in ev if e.key == "_sdpa") / 1e3
+    bwd = {n: sum(e.device_time_total for e in ev
+                  if e.key == f"autograd::engine::evaluate_function: {n}") / 1e3
+           for n in SDPA_BACKWARD}
+    if total <= 0:
+        return "not measured (no device time in the trace)"
+    kernels = sorted((e for e in ev if e.device_type.name == "CUDA"),
+                     key=lambda e: -e.self_device_time_total)
+    top = "; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.1f} ms"
+                    for e in kernels[:5])
+    return (f"step wall {wall * 1e3:.1f} ms (profiler on), device {total:.1f} ms in "
+            f"{sum(e.count for e in kernels)} kernels (top: {top}); _sdpa "
+            f"forward {fwd:.1f} ms ({fwd / total:.3f}), its backward nodes "
+            + ", ".join(f"{n} {t:.1f}" for n, t in bwd.items())
+            + f" ms ({sum(bwd.values()) / total:.3f}); share "
+            f"{(fwd + sum(bwd.values())) / total:.3f}")
+
+
+def phase_train() -> dict:
+    """The LM train step on the card: launch/train.py with llama3.2-1b at
+    published width and depth (f32, batch 4, seq 1024, lr 3e-4, 3 steps),
+    then one step with --microbatch 2 from the same weights; the card
+    against the CPU at full width and 2 layers with weights carried from
+    the card; the kernel wrappers' refusal of inputs that require grad; one
+    profiled step. The step launches no attention kernel (it computes the
+    reference's _sdpa)."""
+    import copy
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import api as model_api
+    from repro_torch.models import steps
+    from repro_torch.train import adamw_init
+
+    before = ops.launch_counts()
+    snaps = {}
+
+    def keep(step, model, metrics):
+        if step <= 1:
+            snaps[step] = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+
+    out = train_launch.run(train_launch.parse_args(TRAIN_ARGS + ["--steps", "3"]),
+                           on_step=keep, log=lambda m: print(f"train: {m}", flush=True))
+    hist = out["history"]
+    check(all(np.isfinite(h["loss"]) for h in hist), f"train: non-finite loss {hist}")
+    check(all(h["grad_norm"] > 0 for h in hist), f"train: zero grad_norm {hist}")
+    unchanged = [n for n in snaps[0] if torch.equal(snaps[0][n], snaps[1][n])]
+    check(not unchanged, f"train: parameters unchanged after step 1: {unchanged[:5]}")
+    n_params = sum(t.numel() for t in snaps[0].values())
+    print(f"train: llama3.2-1b full width ({n_params} parameters, {len(snaps[0])} tensors, "
+          f"f32), batch 4 x 1024: losses {[round(h['loss'], 5) for h in hist]}, grad_norm "
+          f"{[round(h['grad_norm'], 4) for h in hist]}; step ms "
+          f"{[round(t * 1e3, 1) for t in out['walls']]}; {out['tokens_per_s']:.1f} tokens/s "
+          f"after the first step; peak memory allocated {out['peak_gib']:.2f} GiB; every "
+          f"parameter changed after step 1", flush=True)
+    cfg = ARCHS["llama3.2-1b"]
+    model, opt = out["model"], out["opt"]
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(synthetic_lm_batches(
+        vocab=cfg.vocab, seq_len=1024, batch=4, seed=1)).items()}
+    step = steps.make_train_step(cfg, lr=3e-4)
+    print(f"train: profile of one step: {sdpa_share(lambda: step(model, opt, batch))}",
+          flush=True)
+    del out, model, opt, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def same_start(step, model, metrics):
+        if step == 0:
+            diff = [n for n, p in model.named_parameters() if not torch.equal(p.cpu(), snaps[0][n])]
+            check(not diff, f"train: the microbatch run starts from other weights: {diff[:3]}")
+    mb = train_launch.run(train_launch.parse_args(TRAIN_ARGS + ["--steps", "1",
+                                                               "--microbatch", "2"]),
+                          on_step=same_start, log=lambda m: print(f"train: {m}", flush=True))
+    mb_loss = abs(mb["history"][0]["loss"] - hist[0]["loss"]) / abs(hist[0]["loss"])
+    mb_params = max((p.detach().cpu() - snaps[1][n]).abs().max().item()
+                    for n, p in mb["model"].named_parameters())
+    print(f"train: --microbatch 2 against 1 after one step from the same weights: loss rel "
+          f"err {mb_loss:.3e} (tol 1e-5), params max abs err {mb_params:.3e} (tol 1e-4); "
+          f"step {mb['walls'][0] * 1e3:.1f} ms, peak {mb['peak_gib']:.2f} GiB", flush=True)
+    check(mb_loss < 1e-5, f"train: microbatch 2 loss off by {mb_loss}")
+    check(mb_params < 1e-4, f"train: microbatch 2 params off by {mb_params}")
+    del mb, snaps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the card against the CPU: full width, depth cut to 2 layers for the CPU's time
+    cfg2 = cfg.replace(n_layers=2)
+    g_model = model_api.init_model(0, cfg2, device="cuda")
+    c_model = copy.deepcopy(g_model).cpu()
+    data = next(synthetic_lm_batches(vocab=cfg.vocab, seq_len=1024, batch=2, seed=0))
+    step2 = steps.make_train_step(cfg2, lr=3e-4)
+    g_model, _, gm = step2(g_model, adamw_init(g_model),
+                           {k: torch.from_numpy(v).cuda() for k, v in data.items()})
+    t = time.perf_counter()
+    c_model, _, cm = step2(c_model, adamw_init(c_model),
+                           {k: torch.from_numpy(v) for k, v in data.items()})
+    cpu_s = time.perf_counter() - t
+    l_err = abs(float(gm["loss"]) - float(cm["loss"])) / abs(float(cm["loss"]))
+    gn_err = abs(float(gm["grad_norm"]) - float(cm["grad_norm"])) / float(cm["grad_norm"])
+    p_err = max((g.detach().cpu() - c.detach()).abs().max().item() for g, c in
+                zip(g_model.parameters(), c_model.parameters(), strict=True))
+    print(f"train: one step card vs CPU (llama3.2-1b width, 2 layers, batch 2 x 1024, CPU "
+          f"step {cpu_s:.1f} s): loss rel err {l_err:.3e} (tol 1e-5), grad_norm rel err "
+          f"{gn_err:.3e} (tol 1e-4), params max abs err {p_err:.3e} (tol 1e-4)", flush=True)
+    check(l_err < 1e-5, f"train: loss card vs CPU off by {l_err}")
+    check(gn_err < 1e-4, f"train: grad_norm card vs CPU off by {gn_err}")
+    check(p_err < 1e-4, f"train: params card vs CPU off by {p_err}")
+    del g_model, c_model
+
+    # -- each kernel wrapper refuses an input that requires grad
+    q = torch.randn(1, 64, 8, 64, device="cuda", requires_grad=True)
+    kv = torch.randn(1, 64, 2, 64, device="cuda")
+    cases = {"flash_attention": lambda: fa.flash_attention(q, kv, kv),
+             "decode_attention": lambda: da.decode_attention(
+                 q[:, :1], kv, kv, torch.ones(1, 64, dtype=torch.bool, device="cuda"))}
+    for kname, call in cases.items():
+        try:
+            call()
+        except ValueError as e:
+            check("no backward" in str(e), f"train: {kname} raised another error: {e}")
+        else:
+            fail(f"train: the {kname} wrapper took an input that requires grad")
+    print("train: both kernel wrappers refuse an input that requires grad", flush=True)
+    check(ops.launch_counts() == before,
+          f"train: the train phase launched attention kernels {ops.launch_counts()}")
+    return {"flash_attention": 0, "decode_attention": 0}
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description="GPU smoke test of the PyTorch/CUDA port")
+    ap.add_argument("--phases", nargs="+", choices=sorted(PHASES),
+                    help="run only these phases after the build (no kernel summary and "
+                         "no device line); the default runs every phase")
+    only = ap.parse_args(argv).phases
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
@@ -1540,6 +1837,11 @@ def main():
         print(f"phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
         return out
 
+    if only:
+        for name in only:
+            timed(name, PHASES[name])
+        print(f"phases {only} passed", flush=True)
+        return
     summary = timed("kernels", phase_kernels, Timer())
     serve_counts, stage = timed("serve", phase_serve)
     decode_counts = timed("decode", phase_decode, stage.params[0])
@@ -1549,12 +1851,14 @@ def main():
     forecast_counts = timed("forecast", phase_forecast)
     calibrate_counts = timed("calibrate", phase_calibrate)
     families_counts = timed("families", phase_families)
+    twin_counts = timed("twin", phase_twin)
+    train_counts = timed("train", phase_train)
 
     kernels = []
     for name in build.KERNELS:
         launches = (serve_counts[name] + decode_counts[name] + runtime_counts[name]
                     + opd_counts[name] + forecast_counts[name] + calibrate_counts[name]
-                    + families_counts[name])
+                    + families_counts[name] + twin_counts[name] + train_counts[name])
         check(launches > 0, f"{name} never launched on the main path")
         row = summary[name]
         src, replaces = SOURCES[name]
@@ -1570,6 +1874,12 @@ def main():
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),
           flush=True)
+
+
+# the phases that take no argument, by name (--phases)
+PHASES = {"runtime": phase_runtime, "opd": phase_opd, "forecast": phase_forecast,
+          "calibrate": phase_calibrate, "families": phase_families, "twin": phase_twin,
+          "train": phase_train}
 
 
 if __name__ == "__main__":

@@ -24,9 +24,8 @@ run's virtual-time results equal those of ``real=False``.
 ``FleetSession`` serves N tenants on one shared event loop; its tenants'
 learned controllers and forecasters train on the fleet session's device.
 
-Not ported yet, and raising rather than running something else: training
-on the runtime twin (``train_backend="runtime"``, ROADMAP Queue 1 item 8)
-and ``debug_checkify`` (item 13).
+Not ported yet, and raising rather than running something else:
+``debug_checkify`` (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -101,9 +100,12 @@ class Session:
 
     def train(self, episodes: int | None = None, *, log=None) -> Session:
         """Run PPO training for learned controllers; no-op for baselines.
-        On-policy episodes step the closed-form ``PipelineEnv``, vectorized
-        on the session's device via ``num_envs``; expert episodes always step
-        a real env. Fully seeded from the spec."""
+        The controller's ``train_backend`` picks what on-policy episodes
+        roll on, on the session's device: "analytic" steps the closed-form
+        ``PipelineEnv`` (vectorized via ``num_envs``), "runtime" rolls
+        closed-loop episodes on the discrete-event twin
+        (``core.runtime_vec``); expert episodes always step a real env.
+        Fully seeded from the spec."""
         c, scen = self.spec.controller, self.spec.scenario
         episodes = c.train_episodes if episodes is None else episodes
         if not self.trainable or episodes <= 0:
@@ -113,12 +115,14 @@ class Session:
             raise ValueError(f"unknown train_backend {c.train_backend!r}")
 
         def make_env(seed):
+            if runtime_backend:
+                return RuntimeEnv(self.pipe, scen.train_arrivals(seed),
+                                  horizon=scen.horizon)
             return PipelineEnv(self.pipe,
                                scen.train_trace(seed, seconds=c.train_seconds),
                                seed=seed)
 
         if self.trainer is None:
-            # the runtime backend's twin is not ported: the trainer raises
             self.trainer = OPDTrainer(
                 self.pipe, make_env,
                 ppo=PPOConfig(expert_freq=c.expert_freq), seed=c.seed,

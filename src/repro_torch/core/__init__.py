@@ -1,9 +1,8 @@
 """OPD — the paper's contribution: MDP model, LSTM workload predictor,
 residual feature extraction, PPO policy with expert guidance, baselines.
 The NumPy parts are bit-identical to ``repro.core``; the networks and the
-vectorized analytic env and the load forecaster run on a torch device;
-proactive pre-warm control is NumPy. The runtime twin comes with ROADMAP
-Queue 1 item 8."""
+vectorized analytic env, the discrete-event runtime twin and the load
+forecaster run on a torch device; proactive pre-warm control is NumPy."""
 from repro_torch.core.mdp import (ModelVariant, Task, Pipeline, Config, QoSWeights,
                                   pipeline_metrics, qos, objective, reward, feasible,
                                   resource_usage)

@@ -9,10 +9,13 @@ Rollout collection has two engines:
   expert (host-side coordinate descent);
 - vectorized analytic (``num_envs > 1``): ``core.vecenv`` rolls
   ``num_envs`` analytic environments per episode as one batch of tensors on
-  the trainer's device, with batched GAE.
+  the trainer's device, with batched GAE;
+- vectorized runtime (``vec_runtime`` arrivals factory): the
+  ``core.runtime_vec`` discrete-event twin rolls closed-loop episodes on
+  the *runtime* dynamics (queues, batch timeouts, cold starts) on the
+  trainer's device, never constructing a per-env ``RuntimeEnv``
+  (``launch/runtime_train_throughput.py`` measures it).
 
-The reference's third engine, the discrete-event runtime twin
-(``vec_runtime``), is not ported yet (ROADMAP Queue 1 item 8) and raises.
 The policy and its optimiser state live on ``device`` (default ``"cuda"``);
 minibatch permutations and behaviour-cloning draws come from the same
 ``np.random.default_rng(seed)`` stream as the reference's.
@@ -24,8 +27,9 @@ from dataclasses import dataclass
 import numpy as np  # reprolint: ignore[RPL002] host-side batch assembly, GAE and logging only
 import torch
 
+from repro_torch.core import runtime_vec
 from repro_torch.core.expert import ExpertPolicy
-from repro_torch.core.mdp import Pipeline, QoSWeights
+from repro_torch.core.mdp import ADAPTATION_INTERVAL, Pipeline, QoSWeights
 from repro_torch.core.policy import (Policy, action_to_config, config_to_action,
                                      head_sizes, init_policy, log_prob_entropy,
                                      sample_action)
@@ -103,10 +107,6 @@ class OPDTrainer:
     def __init__(self, pipe: Pipeline, make_env, *, ppo: PPOConfig | None = None,
                  weights: QoSWeights | None = None, seed: int = 0,
                  num_envs: int = 1, vec_runtime=None, device="cuda"):
-        if vec_runtime is not None:
-            raise NotImplementedError(
-                "vec_runtime: the discrete-event runtime twin (core/runtime_vec.py) "
-                "is not ported yet (ROADMAP Queue 1 item 8, runtime twin)")
         self.device = resolve_device(device)
         self.pipe = pipe
         self.make_env = make_env
@@ -125,14 +125,20 @@ class OPDTrainer:
         # replay memory D of expert transitions (Algorithm 2)
         self.expert_states = np.zeros((0, env.state_dim), np.float32)
         self.expert_actions = np.zeros((0, len(self.sizes)), np.int32)
-        # vectorized rollouts (core.vecenv) for analytic envs without an
-        # external predictor; expert episodes always keep the legacy loop
+        # vectorized rollout engines: core.vecenv for analytic envs without
+        # an external predictor, core.runtime_vec (the discrete-event twin)
+        # when a ``vec_runtime`` arrivals factory (seed -> ArrivalProcess)
+        # is supplied; expert episodes always keep the legacy per-step loop
         self.num_envs = max(1, int(num_envs))
+        self._vec_runtime = vec_runtime
         self._vec_ok = (self.num_envs > 1 and hasattr(env, "trace")
                         and getattr(env, "predictor", None) is None)
         self._tables = (tables_from_pipeline(pipe, device=self.device)
-                        if self._vec_ok else None)
+                        if self._vec_ok or vec_runtime is not None else None)
         self._weights = getattr(env, "w", None) or QoSWeights()
+        if vec_runtime is not None:
+            self._rt_horizon = int(getattr(env, "horizon", 120))
+            self._rt_max_wait = float(getattr(env, "max_wait", runtime_vec.DEFAULT_MAX_WAIT))
 
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a), device=self.device)
@@ -208,6 +214,23 @@ class OPDTrainer:
                            weights=self._weights)
         return self._finish_vec(traj)
 
+    def _rollout_vec_runtime(self, base_seed: int):
+        """Collect ``num_envs`` closed-loop episodes on the discrete-event
+        runtime twin (``core.runtime_vec``) on the trainer's device. Only
+        the host-side arrival arrays are built per env; no ``RuntimeEnv``
+        or ``ServingRuntime`` is constructed. Same seed discipline as
+        ``_rollout_vec``."""
+        s0 = VEC_SEED_BASE + base_seed * self.num_envs
+        seeds = range(s0, s0 + self.num_envs)
+        eps = runtime_vec.stack_episodes([
+            runtime_vec.episode_arrivals(self._vec_runtime(s), self._rt_horizon)
+            for s in seeds])
+        traj = runtime_vec.vec_rollout(
+            self.params, self._tables, eps, env_generators(self.seed, seeds, self.device),
+            n_steps=max(1, self._rt_horizon // ADAPTATION_INTERVAL),
+            weights=self._weights, max_wait=self._rt_max_wait)
+        return self._finish_vec(traj)
+
     def _update(self, states, actions, logps, adv, returns):
         """Mini-batch Adam epochs over one batch of transitions (Eq. 11)."""
         cfg = self.ppo
@@ -244,7 +267,10 @@ class OPDTrainer:
         use_expert = cfg.expert_freq > 0 and episode_idx % cfg.expert_freq == 0
         base = env_seed if env_seed is not None else episode_idx
 
-        if self._vec_ok and not use_expert:
+        if self._vec_runtime is not None and not use_expert:
+            states, actions, logps, rewards, adv, returns = \
+                self._rollout_vec_runtime(base)
+        elif self._vec_ok and not use_expert:
             states, actions, logps, rewards, adv, returns = \
                 self._rollout_vec(base)
         else:

@@ -9,8 +9,8 @@ env axis ``E`` and an episode is a Python loop over its ``n_steps``
 adaptation intervals. The interval index ``t`` is a Python int shared by
 all envs, so stepping never reads a value back from the device. The NumPy
 ``PipelineEnv`` stays the reference implementation (``tests/test_torch_vecenv.py``
-pins step and reward equivalence between the two) and the only backend for
-the event-driven runtime path.
+pins step and reward equivalence between the two); ``core.runtime_vec`` is
+the event-driven runtime's twin and reuses this module's placement.
 
 Scope, mirroring exactly what the PPO training path constructs:
 
@@ -142,6 +142,8 @@ class PlacementArrays(NamedTuple):
     primary: torch.Tensor        # [E, N] node with the most replicas (ties low)
     overflow: torch.Tensor       # [E]    force-placed resource shortfall
     rem: torch.Tensor            # [E, K] per-node remaining capacity
+    slot_speed: torch.Tensor     # [E, N, f_max] node speed of each replica slot
+                                 #   (1 for an inactive slot)
 
 
 def _placement(tables: PipelineTables, z: torch.Tensor,
@@ -151,18 +153,21 @@ def _placement(tables: PipelineTables, z: torch.Tensor,
     integral chip counts, so every comparison is exact in float32).
 
     Unrolled over the static (n_tasks × f_max) replica slots; inactive slots
-    (r >= f_n) are masked out, in the Python scheduler's assignment order."""
+    (r >= f_n) are masked out, in the Python scheduler's assignment order, so
+    replica slot ``r`` of stage ``i`` is ``Placement.nodes[i][r]`` and
+    ``slot_speed`` mirrors ``RuntimeStage.replica_speeds``."""
     res = _gather(tables.resource, z)             # [E, N]
     E = z.shape[0]
     rem = tables.node_capacity.expand(E, -1).clone()
     speed = tables.node_speed
     overflow = torch.zeros(E, device=z.device)
-    speed_sums, min_speeds, primaries = [], [], []
+    speed_sums, min_speeds, primaries, slot_rows = [], [], [], []
     for i in range(tables.n_tasks):
         w = res[:, i]
         s_sum = torch.zeros(E, device=z.device)
         s_min = torch.full((E,), float("inf"), device=z.device)
         counts = torch.zeros_like(rem, dtype=torch.int64)
+        slots = []
         for r in range(tables.f_max):
             active = r < f[:, i]
             fits = rem >= w[:, None]
@@ -176,13 +181,16 @@ def _placement(tables: PipelineTables, z: torch.Tensor,
             s_sum = s_sum + sp * amt
             s_min = torch.where(active, torch.minimum(s_min, sp), s_min)
             counts = counts.scatter_add(1, idx[:, None], active.long()[:, None])
+            slots.append(torch.where(active, sp, 1.0))
         speed_sums.append(s_sum)
         min_speeds.append(torch.where(torch.isfinite(s_min), s_min, 1.0))
         primaries.append(torch.argmax(counts, dim=1))
+        slot_rows.append(torch.stack(slots, 1))
     return PlacementArrays(speed_sum=torch.stack(speed_sums, 1),
                            min_speed=torch.stack(min_speeds, 1),
                            primary=torch.stack(primaries, 1),
-                           overflow=overflow, rem=rem)
+                           overflow=overflow, rem=rem,
+                           slot_speed=torch.stack(slot_rows, 1))
 
 
 def observe_cfg(tables: PipelineTables, z: torch.Tensor, f: torch.Tensor,

@@ -1,1 +1,1 @@
-from repro_torch.data.tokens import synthetic_requests
+from repro_torch.data.tokens import synthetic_lm_batches, synthetic_requests

@@ -84,9 +84,20 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def refuse_grad(kernel: str, *ts) -> None:
+    """The kernels have no backward (the Pallas kernels have none either):
+    raise, rather than return an output autograd cannot see, when grad is
+    enabled and an input requires it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise ValueError(f"{kernel} kernel has no backward: an input requires grad; "
+                         "train through attention_prefill(sdpa=True), the reference's "
+                         "use_flash=False path")
+
+
 def _check_inputs(q, k, v, valid_mask):
     """Raise on what the kernel does not take; returns (B, C, H, Hkv, D)."""
     ts = (q, k, v, valid_mask)
+    refuse_grad("decode_attention", q, k, v)
     if not all(t.is_cuda for t in ts):
         raise ValueError("decode_attention kernel takes CUDA tensors only; "
                          "kernels.ops routes CPU tensors to the plain version")

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import sm_count
+from repro_torch.kernels.decode_attention import refuse_grad, sm_count
 
 launches = 0            # incremented once per successful kernel launch
 
@@ -100,6 +100,7 @@ def _lib():
 def _check_inputs(q, k, v):
     """Raise on what the kernel does not take (``plan_tiles`` checks the
     head_dim and group size); returns (B, S, H, Hkv, D)."""
+    refuse_grad("flash_attention", q, k, v)
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention kernel takes CUDA tensors only; "
                          "kernels.ops routes CPU tensors to the plain version")

@@ -130,13 +130,15 @@ def _mean_aux(auxs: list[dict]) -> dict:
 
 def forward(params: DecoderLM, batch, cfg: ArchConfig, *, window=None,
             shard_h=None, collect_cache: bool = False, last_only: bool = False,
-            return_hidden: bool = False):
+            return_hidden: bool = False, sdpa: bool = False):
     """Full-sequence forward -> (logits, aux[, cache]). ``last_only``
     computes logits for the final position only. aux is the mean over
     layers (and over an interleave block's sub-layers first, as the
     reference) of the MoE load-balance loss and dropped fraction, zero for
-    a dense layer. ``shard_h`` (and ``cfg.remat``) are the reference's
-    sharding and training concerns; they are accepted and ignored."""
+    a dense layer. ``sdpa`` goes to ``attention_prefill`` (the train
+    step's differentiable attention). ``shard_h`` (and ``cfg.remat``) are
+    the reference's sharding and training concerns; they are accepted and
+    ignored."""
     h = embed_inputs(params, batch, cfg)
     B, S_total = h.shape[:2]
     _, norm = _norm_fns(cfg)
@@ -148,7 +150,8 @@ def forward(params: DecoderLM, batch, cfg: ArchConfig, *, window=None,
             a, (k, v) = rnn.attention_prefill(
                 sp.attn, norm(sp.ln_attn, h),
                 n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-                rope_theta=cfg.rope_theta, window=window, use_flash=cfg.use_flash)
+                rope_theta=cfg.rope_theta, window=window, use_flash=cfg.use_flash,
+                sdpa=sdpa)
             h = h + a
             x = norm(sp.ln_mlp, h)
             if use_moe:

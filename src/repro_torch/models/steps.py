@@ -1,15 +1,64 @@
-"""Step-function factories (prefill / serve) and cache geometry.
+"""Step-function factories (train / prefill / serve), abstract input specs
+and cache geometry (port of ``repro/models/steps.py``).
 
-``make_train_step`` and the abstract ``*_specs`` of the reference come with
-the training slice (ROADMAP Queue 1 item 12)."""
+The abstract specs are ``meta`` tensors (shape and dtype, no storage), the
+counterpart of the reference's ``jax.ShapeDtypeStruct``s."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.models import api, decoder, whisper
 from repro_torch.models.config import LONG_WINDOW, ArchConfig, InputShape
+from repro_torch.train import adamw_update, chunked_lm_head_loss, clip_by_global_norm
+
+
+# --------------------------------------------------------------- specs ----
+
+def _f(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def text_len(cfg: ArchConfig, seq_len: int) -> int:
     return seq_len - cfg.n_patches if cfg.family == "vlm" else seq_len
+
+
+def batch_specs(cfg: ArchConfig, shape: InputShape) -> dict[str, torch.Tensor]:
+    """Meta tensors for the step's ``batch`` argument."""
+    B, S = shape.global_batch, shape.seq_len
+    act_dt = cfg.param_dtype
+    if shape.kind == "decode":
+        specs = {"tokens": _f((B, 1), torch.int32)}
+    else:
+        specs = {"tokens": _f((B, text_len(cfg, S)), torch.int32)}
+        if cfg.family == "vlm":
+            specs["vision_embeds"] = _f((B, cfg.n_patches, cfg.d_model), act_dt)
+        if cfg.family == "audio":
+            # decode reads the cross-attention KV from the cache instead
+            specs["enc_states"] = _f((B, cfg.enc_len, cfg.d_model), act_dt)
+    if shape.kind == "train":
+        specs["labels"] = _f((B, S), torch.int32)
+    return specs
+
+
+def cache_specs(cfg: ArchConfig, shape: InputShape):
+    """Abstract KV/state cache of a decode shape (context already consumed):
+    ``api.init_cache``'s structure with meta tensors, built without
+    allocating (the reference's ``jax.eval_shape``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    if shape.kind != "decode":
+        raise ValueError(f"cache_specs takes a decode shape, not {shape.kind!r}")
+    with FakeTensorMode():
+        cache = api.init_cache(cfg, shape.global_batch, cache_context(cfg, shape),
+                               device="cpu")
+
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(meta(v) for v in tree)
+        return _f(tuple(tree.shape), tree.dtype)
+
+    return meta(cache)
 
 
 def cache_context(cfg: ArchConfig, shape: InputShape) -> int:
@@ -23,6 +72,73 @@ def cache_context(cfg: ArchConfig, shape: InputShape) -> int:
 
 def uses_ring(cfg: ArchConfig, shape: InputShape) -> bool:
     return shape.kind == "decode" and cfg.family != "ssm" and shape.seq_len > 65_536
+
+
+# --------------------------------------------------------------- steps ----
+
+def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, shard_h=None,
+                    microbatch: int | None = None):
+    """(model, opt_state, batch) -> (model, opt_state, metrics).
+
+    The loss is ``chunked_lm_head_loss`` over ``api.forward(...,
+    return_hidden=True)`` with the MoE ``lb_loss`` folded in; attention is
+    the reference's ``use_flash=False`` computation (``sdpa=True``), which
+    the reference trains through on every backend. Every parameter is
+    differentiated, clipped to global norm 1.0 and AdamW-decayed, as the
+    reference does for every leaf: the step turns grad on for the model's
+    parameters while it runs and restores their flags after. ``microbatch``
+    = number of gradient-accumulation chunks along the batch (f32 grads
+    summed in chunk order, divided at the end; the metrics are the last
+    chunk's), so only one chunk's activations are live at a time. The
+    model is updated in place."""
+
+    def loss_fn(model, batch):
+        # labels are [B, S_total]; vision positions carry -100, so a VLM's
+        # prefix is ignored by the loss
+        h, aux = api.forward(model, batch, cfg, shard_h=shard_h, return_hidden=True,
+                             sdpa=True)
+        return chunked_lm_head_loss(model.lm_head, h, batch["labels"],
+                                    lb_loss=aux["lb_loss"])
+
+    def grads_of(model, names, params, batch):
+        with torch.enable_grad():
+            loss, metrics = loss_fn(model, batch)
+            grads = torch.autograd.grad(loss, params)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, dict(
+            zip(names, grads, strict=True))
+
+    def train_step(model, opt_state, batch):
+        names = [n for n, _ in model.named_parameters()]
+        params = list(model.parameters())
+        flags = [p.requires_grad for p in params]
+        for p in params:
+            p.requires_grad_(True)
+        try:
+            B = batch["tokens"].shape[0]
+            if microbatch and microbatch > 1 and B % microbatch == 0:
+                n = B // microbatch
+                loss = torch.zeros((), dtype=torch.float32, device=params[0].device)
+                grads = {k: torch.zeros_like(p, dtype=torch.float32)
+                         for k, p in zip(names, params, strict=True)}
+                for i in range(microbatch):
+                    mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                    mb_loss, metrics, mb_grads = grads_of(model, names, params, mb)
+                    loss = loss + mb_loss
+                    for k, g in grads.items():
+                        g.add_(mb_grads[k].to(torch.float32))
+                    del mb_grads
+                loss = loss / microbatch
+                grads = {k: g / microbatch for k, g in grads.items()}
+            else:
+                loss, metrics, grads = grads_of(model, names, params, batch)
+        finally:
+            for p, flag in zip(params, flags, strict=True):
+                p.requires_grad_(flag)
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        model, opt_state = adamw_update(model, grads, opt_state, lr=lr)
+        return model, opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, *, shard_h=None):
@@ -55,3 +171,11 @@ def make_serve_step(cfg: ArchConfig, shape: InputShape):
         return api.decode_step(params, batch, cache, dec_cfg, ring=ring)
 
     return serve_step
+
+
+def make_step(cfg: ArchConfig, shape: InputShape, **kw):
+    if shape.kind == "train":
+        return make_train_step(cfg, **kw)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, **kw)
+    return make_serve_step(cfg, shape)

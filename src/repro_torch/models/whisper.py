@@ -84,10 +84,11 @@ def _aux(h):
 
 
 def forward(params: Whisper, batch, cfg: ArchConfig, *, window=None, shard_h=None,
-            last_only: bool = False, return_hidden: bool = False):
+            last_only: bool = False, return_hidden: bool = False, sdpa: bool = False):
     """Teacher-forced decode over a full target sequence. batch: tokens
-    [B, S], enc_states [B, enc_len, d]. ``shard_h`` and ``cfg.remat`` are
-    accepted and ignored."""
+    [B, S], enc_states [B, enc_len, d]. ``sdpa`` goes to the
+    self-attention's ``attention_prefill``; ``shard_h`` and ``cfg.remat``
+    are accepted and ignored."""
     tokens = batch["tokens"]
     enc = batch["enc_states"].to(cfg.param_dtype)
     B, S = tokens.shape
@@ -97,7 +98,7 @@ def forward(params: Whisper, batch, cfg: ArchConfig, *, window=None, shard_h=Non
         a, _ = rnn.attention_prefill(
             lp.self_attn, rnn.layernorm(lp.ln_self, h),
             n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-            rope_theta=None, window=window, use_flash=cfg.use_flash)
+            rope_theta=None, window=window, use_flash=cfg.use_flash, sdpa=sdpa)
         h = h + a
         ck, cv = _cross_kv(lp, enc, cfg)
         h = h + _cross_apply(lp, rnn.layernorm(lp.ln_cross, h), ck, cv, cfg)

@@ -62,9 +62,10 @@ def _aux(h):
 
 
 def forward(params: XLSTMLM, batch, cfg: ArchConfig, *, window=None, shard_h=None,
-            last_only: bool = False, return_hidden: bool = False):
-    """tokens [B, S] -> (logits, aux). ``window``, ``shard_h`` and
-    ``cfg.remat`` are accepted and ignored, as the dense family does."""
+            last_only: bool = False, return_hidden: bool = False, sdpa: bool = False):
+    """tokens [B, S] -> (logits, aux). ``window``, ``shard_h``, ``sdpa``
+    (no attention here) and ``cfg.remat`` are accepted and ignored, as the
+    dense family does."""
     h = rnn.embedding(params.embed, batch["tokens"])
     for i, lp in enumerate(params.layers):
         x = rnn.rmsnorm(lp.ln, h)

@@ -80,22 +80,23 @@ def init_model(seed: int, cfg: ArchConfig, *, device="cuda") -> Zamba:
     return Zamba(cfg, device=dev, generator=gen)
 
 
-def _shared_block(sp: SharedBlock, h, cfg: ArchConfig, *, window=None):
+def _shared_block(sp: SharedBlock, h, cfg: ArchConfig, *, window=None, sdpa=False):
     a, _ = rnn.attention_prefill(
         sp.attn, rnn.rmsnorm(sp.ln_attn, h),
         n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-        rope_theta=cfg.rope_theta, window=window, use_flash=cfg.use_flash)
+        rope_theta=cfg.rope_theta, window=window, use_flash=cfg.use_flash, sdpa=sdpa)
     h = h + a
     return h + rnn.mlp(sp.mlp, rnn.rmsnorm(sp.ln_mlp, h), kind="swiglu")
 
 
 def forward(params: Zamba, batch, cfg: ArchConfig, *, window=None, shard_h=None,
-            last_only: bool = False, return_hidden: bool = False):
-    """tokens [B, S] -> (logits, aux); aux is zero (no MoE). ``shard_h`` and
+            last_only: bool = False, return_hidden: bool = False, sdpa: bool = False):
+    """tokens [B, S] -> (logits, aux); aux is zero (no MoE). ``sdpa`` goes
+    to the shared block's ``attention_prefill``; ``shard_h`` and
     ``cfg.remat`` are accepted and ignored."""
     h = rnn.embedding(params.embed, batch["tokens"])
     for group in params.mamba_layers:
-        h = _shared_block(params.shared, h, cfg, window=window)
+        h = _shared_block(params.shared, h, cfg, window=window, sdpa=sdpa)
         for lp in group:
             h = h + rnn.mamba2_scan(lp.mamba, rnn.rmsnorm(lp.ln, h),
                                     n_heads=cfg.n_heads, d_state=cfg.ssm_state)

@@ -10,7 +10,10 @@ Shapes:
 On a CUDA tensor both attention functions run the Hopper kernels through
 ``kernels.ops`` whatever ``use_flash`` says. On the CPU ``use_flash`` picks
 the kernels' plain versions (``kernels.ops``) or ``_sdpa``, as in the
-reference, so the CPU parity tests line up one to one.
+reference, so the CPU parity tests line up one to one. The kernels have no
+backward, as the Pallas kernels have none: the train step asks prefill for
+``sdpa=True``, the reference's ``use_flash=False`` computation, on every
+device.
 """
 from __future__ import annotations
 
@@ -64,8 +67,9 @@ _NEG = -1e30            # finite -inf stand-in, as in the reference
 def _sdpa_blocked(q, k, v, *, window=None, kv_chunk: int = 1024):
     """Causal GQA attention without the [S, S] tensor: a loop over KV chunks
     carries the online-softmax state (m, l, acc), so long prefills hold
-    O(S·chunk) instead of O(S²). Plain torch, reached on the CPU only (a
-    CUDA tensor takes the flash kernel). q [B,S,H,D]; k,v [B,T,Hkv,D]."""
+    O(S·chunk) instead of O(S²). Plain torch, reached on the CPU and, on
+    any device, by ``attention_prefill(sdpa=True)``. q [B,S,H,D];
+    k,v [B,T,Hkv,D]."""
     B, S, H, D = q.shape
     T = k.shape[1]
     Hkv = k.shape[2]
@@ -100,10 +104,14 @@ def _sdpa_blocked(q, k, v, *, window=None, kv_chunk: int = 1024):
 def attention_prefill(params: Attention, x, *, n_heads: int, n_kv: int,
                       head_dim: int, rope_theta: float | None = 10000.0,
                       window: int | None = None, positions=None,
-                      use_flash: bool = False, blocked_threshold: int = 4096):
+                      use_flash: bool = False, blocked_threshold: int = 4096,
+                      sdpa: bool = False):
     """Causal self-attention over a full sequence. Returns (out, (k, v)).
-    On the CPU, sequences longer than ``blocked_threshold`` stream through
-    the blocked online-softmax path (no [S, S] materialisation)."""
+    ``sdpa=True`` computes the reference's ``use_flash=False`` attention on
+    every device, the differentiable path the train step takes; otherwise
+    a CUDA tensor launches the flash kernel. On that path sequences longer
+    than ``blocked_threshold`` stream through the blocked online-softmax
+    path (no [S, S] materialisation)."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, n_heads, n_kv, head_dim)
     if positions is None:
@@ -112,7 +120,7 @@ def attention_prefill(params: Attention, x, *, n_heads: int, n_kv: int,
         inv = rope_frequencies(head_dim, theta=rope_theta, device=x.device)
         q = apply_rope(q, positions, inv)
         k = apply_rope(k, positions, inv)
-    if use_flash or x.device.type == "cuda":
+    if not sdpa and (use_flash or x.device.type == "cuda"):
         out = kops.flash_attention(q, k.contiguous(), v.contiguous(),
                                    causal=True, window=window)
     elif S > blocked_threshold and S % 1024 == 0:

@@ -256,14 +256,20 @@ def test_learned_controllers_registered_but_raise(name):
 
 
 def test_training_a_learned_controller_raises():
-    """What training cannot do yet: the runtime twin (item 8). ``proactive``
-    trains exactly as ``opd`` does (the wrapper adds only the plan), then
-    serves."""
-    exp = experiment(api, "opd", "analytic")
-    runtime = api.replace(exp, controller=api.replace(exp.controller,
-                                                      train_backend="runtime"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        api.Session(runtime, device="cpu").train()
+    """Training raises only on an unknown ``train_backend``: the runtime
+    backend trains on the twin (item 8; ``tests/test_torch_runtime_vec.py``
+    holds it). ``proactive`` trains exactly as ``opd`` does (the wrapper
+    adds only the plan), then serves."""
+    exp = experiment(api, "opd", "analytic", pipeline="serve2", horizon=30)
+    runtime = api.replace(exp, controller=api.replace(
+        exp.controller, train_backend="runtime", train_episodes=1, num_envs=2))
+    sess = api.Session(runtime, device="cpu").train()
+    assert sess.trainer._vec_runtime is not None
+    assert sess.trainer.history["expert"] == [False]
+    bad = api.replace(runtime, controller=api.replace(runtime.controller,
+                                                      train_backend="quantum"))
+    with pytest.raises(ValueError, match="train_backend"):
+        api.Session(bad, device="cpu").train()
     assert api.Session(experiment(api, "greedy", "analytic")).train().controller is None
     short = dict(train_episodes=1, train_seconds=120)
 

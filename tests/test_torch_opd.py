@@ -390,9 +390,13 @@ def test_trainer_sampled_episodes_update_params():
 
 
 def test_trainer_refuses_the_runtime_twin():
+    """The runtime twin is ported (item 8): a ``vec_runtime`` arrivals
+    factory selects it, reading horizon and max_wait from the env as the
+    reference does (``tests/test_torch_runtime_vec.py`` trains through it)."""
     _, tpipe, _, tmake = make_env_fns("serve2", 120)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ppo.OPDTrainer(tpipe, tmake, vec_runtime=lambda seed: None, device="cpu")
+    tr = ppo.OPDTrainer(tpipe, tmake, vec_runtime=lambda seed: None, device="cpu")
+    assert tr._vec_runtime is not None and tr._tables is not None
+    assert tr._rt_horizon == 120 and tr._rt_max_wait == 0.25
 
 
 # ----------------------------------------------------------- OPD controller --
