@@ -18,22 +18,27 @@ for the card.
 ``real=True`` serves each stage through live PyTorch models: a
 ``StageServer`` per stage, built once per session on ``device`` (default
 ``"cuda"``, where attention runs through the hand-written Hopper kernels) at
-the archs' full width. The executors never move the virtual clock, so a real
-run's virtual-time results equal those of ``real=False``.
+the archs' full width, in ``dtype`` (default ``"float32"``; ``"bfloat16"``
+halves the weights, so paper-4stage's eight archs fit one 80 GB card). The
+dtype is a keyword of the session, not a spec field: the reference's specs
+carry none, and the executors never move the virtual clock, so a real run's
+virtual-time results equal those of ``real=False`` in any dtype.
+
+``debug_checkify=True`` runs training and serving under the twins'
+sanitizer (``analysis.sanitize``), as the reference's does.
 
 ``FleetSession`` serves N tenants on one shared event loop; its tenants'
 learned controllers and forecasters train on the fleet session's device.
-
-Not ported yet, and raising rather than running something else:
-``debug_checkify`` (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 
 import numpy as np
 
+from repro_torch.analysis import sanitize
 from repro_torch.api.registry import controller_factory
 from repro_torch.api.specs import ExperimentSpec, FleetSpec
 from repro_torch.cluster.env import PipelineEnv, RuntimeEnv
@@ -46,51 +51,63 @@ _STEP_KEYS = ("qos", "cost", "latency", "throughput", "excess", "demand")
 _TRAINABLE = ("opd", "proactive")
 
 
-def build_servers(spec: ExperimentSpec, *, device="cuda", smoke: bool = False):
-    """One live ``StageServer`` per stage on ``device``, at full width.
+def build_servers(spec: ExperimentSpec, *, device="cuda", smoke: bool = False,
+                  dtype: str = "float32"):
+    """One live ``StageServer`` per stage on ``device``, at full width, with
+    weights and activations in ``dtype`` (``ArchConfig.dtype``).
     ``smoke=True`` builds the archs' reduced configs instead, as the
-    reference's CPU executors do; only the CPU tests ask for it."""
+    reference's CPU executors do; only the CPU tests ask for it. The dtype
+    is set after ``smoke()``, which resets it to float32."""
     from repro_torch.configs import ARCHS
     from repro_torch.serving.engine import StageServer
     return [StageServer(f"stage{i}",
-                        [ARCHS[n].smoke() if smoke else ARCHS[n] for n in names],
+                        [(ARCHS[n].smoke() if smoke else ARCHS[n]).replace(dtype=dtype)
+                         for n in names],
                         seq_len=spec.seq_len, seed=i, device=device)
             for i, names in enumerate(spec.pipeline.stages)]
 
 
-def build_executors(spec: ExperimentSpec, *, device="cuda", smoke: bool = False):
+def build_executors(spec: ExperimentSpec, *, device="cuda", smoke: bool = False,
+                    dtype: str = "float32"):
     """Live PyTorch models as stage executors for ``real`` runs."""
-    return [s.execute for s in build_servers(spec, device=device, smoke=smoke)]
+    return [s.execute for s in build_servers(spec, device=device, smoke=smoke,
+                                             dtype=dtype)]
 
 
 class Session:
     def __init__(self, spec: ExperimentSpec, *, device="cuda", smoke: bool = False,
-                 debug_checkify: bool = False):
-        if debug_checkify:
-            raise NotImplementedError(
-                "debug_checkify: the port has no sanitizer for its twins yet "
-                "(ROADMAP Queue 1 item 13, analysis + benchmarks)")
+                 dtype: str = "float32", debug_checkify: bool = False):
         self.spec = spec
         self.pipe = spec.pipeline.build()
         self.device = device
         self.smoke = smoke
+        self.dtype = dtype
         self.servers = None             # live StageServers of a real run
         self.trainer: OPDTrainer | None = None
         self.controller = None
         self._params = None
         self._forecaster = None         # trained once, shared across envs
         self._report: dict | None = None
+        # debug toggle: run every twin rollout under the sanitizer (NaN /
+        # integer division by zero / out-of-bounds index surface as a
+        # SanitizerError instead of reward drift); also reachable via the
+        # REPRO_CHECKIFY=1 env flag without touching call sites
+        self.debug_checkify = debug_checkify
+
+    def _sanitize_scope(self):
+        return (sanitize.enabled_scope(True) if self.debug_checkify
+                else contextlib.nullcontext())
 
     # ------------------------------------------------------------ creation --
 
     @classmethod
-    def from_spec(cls, spec: ExperimentSpec | dict | str, *,
-                  device="cuda") -> Session:
+    def from_spec(cls, spec: ExperimentSpec | dict | str, *, device="cuda",
+                  dtype: str = "float32", debug_checkify: bool = False) -> Session:
         if isinstance(spec, str):
             spec = json.loads(spec)
         if isinstance(spec, dict):
             spec = ExperimentSpec.from_dict(spec)
-        return cls(spec, device=device)
+        return cls(spec, device=device, dtype=dtype, debug_checkify=debug_checkify)
 
     # ------------------------------------------------------------ training --
 
@@ -129,12 +146,13 @@ class Session:
                 num_envs=c.num_envs,
                 vec_runtime=scen.train_arrivals if runtime_backend else None,
                 device=self.device)
-        for ep in range(1, episodes + 1):
-            self.trainer.train_episode(ep, env_seed=ep)
-            if log:
-                h = self.trainer.history
-                log(f"episode {ep}: reward={h['reward'][-1]:9.2f} "
-                    f"loss={h['loss'][-1]:7.3f} expert={h['expert'][-1]}")
+        with self._sanitize_scope():
+            for ep in range(1, episodes + 1):
+                self.trainer.train_episode(ep, env_seed=ep)
+                if log:
+                    h = self.trainer.history
+                    log(f"episode {ep}: reward={h['reward'][-1]:9.2f} "
+                        f"loss={h['loss'][-1]:7.3f} expert={h['expert'][-1]}")
         self.controller = None          # params changed -> rebuild on serve
         return self
 
@@ -179,7 +197,7 @@ class Session:
         weights, so rebuilding would change nothing)."""
         if self.servers is None:
             self.servers = build_servers(self.spec, device=self.device,
-                                         smoke=self.smoke)
+                                         smoke=self.smoke, dtype=self.dtype)
         return self.servers
 
     def build_env(self):
@@ -241,17 +259,18 @@ class Session:
         rewards, configs, decide_walls = [], [], []
         wall0 = time.perf_counter()
         done = False
-        while not done:
-            t0 = time.perf_counter()
-            cfg = decide(controller, env)
-            decide_walls.append(time.perf_counter() - t0)
-            _, r, done, info = env.step(cfg)
-            rewards.append(float(r))
-            configs.append([list(cfg.z), list(cfg.f), list(cfg.b)])
-            for k in _STEP_KEYS:
-                steps[k].append(float(info[k]))
-            if on_step:
-                on_step(env, cfg, info)
+        with self._sanitize_scope():
+            while not done:
+                t0 = time.perf_counter()
+                cfg = decide(controller, env)
+                decide_walls.append(time.perf_counter() - t0)
+                _, r, done, info = env.step(cfg)
+                rewards.append(float(r))
+                configs.append([list(cfg.z), list(cfg.f), list(cfg.b)])
+                for k in _STEP_KEYS:
+                    steps[k].append(float(info[k]))
+                if on_step:
+                    on_step(env, cfg, info)
         summary = env.drain() if hasattr(env, "drain") else {}
         if hasattr(env, "runtime"):
             summary["submitted"] = env.submitted

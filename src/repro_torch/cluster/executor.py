@@ -22,10 +22,10 @@ an entry's outputs are valid until another graph of that arch replays.
 
 The kernels' ``launches`` counters count Python calls, so a replay adds
 nothing to them: an entry records the launches of its captured step.
-Flops come from ``torch.utils.flop_counter.FlopCounterMode`` over one eager
-step, plus 4·B·H·C·D per decode-kernel launch, which the counter cannot
-see (the kernel is called through ctypes; on the CPU the plain version's
-products are counted by the counter itself). Bytes are counted by formula.
+Flops and bytes come from the port's one step counter,
+``launch/step_cost.py``: flops over one eager step (the counted products
+plus 4·B·H·C·D per decode-kernel call), bytes the minimum a decode step
+moves (``step_cost.step_bytes``).
 ``cluster/calibration.py`` fits the measured ``latency(b)`` curves back
 into per-variant ``(alpha, beta)``.
 """
@@ -37,18 +37,16 @@ import time  # reprolint: ignore[RPL002] host-side clock around warm-up and capt
 from dataclasses import dataclass, field
 
 import torch
-from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCHS
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch import step_cost
 from repro_torch.models import api, steps
 from repro_torch.models.config import ArchConfig, InputShape
-from repro_torch.nn.linear import Embedding
 from repro_torch.timing import time_fn
 
 QUANT_BITS = {"int8": 8, "int4": 4}
-_STATE_KEYS = ("states", "ssm", "conv")    # recurrent state a decode step reads and rewrites
 CAPTURE_WARMUP = 2                    # eager steps on a side stream before capture
 
 
@@ -172,47 +170,6 @@ class StageTiming:
     replays: int = 0          # graph replays this measurement made
 
 
-def _tensors(tree):
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tensors(v)
-
-
-def _nbytes(t: torch.Tensor) -> int:
-    return t.numel() * t.element_size()
-
-
-def step_bytes(model: torch.nn.Module, cache: dict, batch: int, logits) -> float:
-    """Bytes one decode step must move, each read once and each write once:
-    every parameter (only ``batch`` rows of an embedding table); of the
-    self-attention KV (``k``/``v`` [L, B, C, kv, hd], zamba's [G, ...]) the
-    valid slots read (``min(pos + 1, C)`` per row: the decode kernel skips
-    masked tiles) and the new slot written; the whole recurrent state (the
-    xLSTM's ``states``, zamba's ``ssm`` and ``conv``) read and written;
-    whisper's cross-attention KV (``ck``/``cv``) read whole; and the logits
-    written."""
-    tables = [m.e for m in model.modules() if isinstance(m, Embedding)]
-    ids = {id(e) for e in tables}
-    total = sum(_nbytes(p) for p in model.parameters() if id(p) not in ids)
-    total += sum(batch * e.shape[1] * e.element_size() for e in tables)
-    for key, val in cache.items():
-        if key == "pos":
-            continue
-        for t in _tensors(val):
-            if key in ("k", "v"):
-                slot = _nbytes(t) // (t.shape[1] * t.shape[2])     # one row's slot
-                valid = int(torch.clamp(cache["pos"] + 1, max=t.shape[2]).sum())
-                total += (valid + t.shape[1]) * slot
-            else:
-                total += _nbytes(t) * (2 if key in _STATE_KEYS else 1)
-    return float(total + _nbytes(logits))
-
-
 def power_limit() -> str:
     """The card's power limit as nvidia-smi reports it ("not measured"
     without nvidia-smi)."""
@@ -331,19 +288,13 @@ class StageExecutor:
     # -------------------------------------------------------- measurement --
 
     def cost(self, entry: _Entry) -> dict:
-        """Flops and bytes of one step (see the module docstring)."""
+        """Flops and bytes of one step (``launch/step_cost.py``)."""
         if entry.cost is None:
             B = entry.batch["tokens"].shape[0]
-            before = ops.launch_counts()["decode_attention"]
-            with FlopCounterMode(display=False) as counter:
-                logits, _ = entry.eager()
-            calls = ops.launch_counts()["decode_attention"] - before
-            flops = float(counter.get_total_flops())
-            if calls:
-                C = entry.cache["k"].shape[2]         # [L, B, C, kv, hd]
-                flops += calls * 4.0 * B * entry.cfg.n_heads * C * entry.cfg.head_dim
-            entry.cost = {"flops": flops,
-                          "bytes": step_bytes(entry.model, entry.cache, B, logits)}
+            (logits, _), counted = step_cost.measure(entry.eager,
+                                                     inputs=(entry.model, entry.cache))
+            entry.cost = {"flops": counted.flops,
+                          "bytes": step_cost.step_bytes(entry.model, entry.cache, B, logits)}
         return entry.cost
 
     def measure(self, arch: str, batch: int, quant: str = "bf16", *, reps: int = 5,

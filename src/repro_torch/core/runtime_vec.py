@@ -45,9 +45,11 @@ replica claiming, service times, cold starts, placement and transfer
 stamps are exact; times are float32, so a completion within ~1e-4 s of an
 interval boundary may count one interval over (served counts within a
 request or two of ``RuntimeEnv``; ``tests/test_torch_runtime_vec.py`` pins
-both against ``ServingRuntime`` and against the reference twin). The
-reference's checkify sanitizer has no counterpart yet (ROADMAP Queue 1
-item 13).
+both against ``ServingRuntime`` and against the reference twin).
+``vec_rollout`` and ``replay`` run under the twins' sanitizer
+(``analysis.sanitize``, NaN and division checks, as the reference's) when
+it is on; a replayed graph would bypass its checks, so ``capture`` is then
+off and the event loop runs eagerly.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ from typing import NamedTuple
 import numpy as np  # reprolint: ignore[RPL002] host-side arrival-array prep only (episode_arrivals/stack_episodes)
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core.mdp import ADAPTATION_INTERVAL, COLD_START_FRACTION, QoSWeights
 from repro_torch.core.policy import Policy, apply_policy, gumbel_noise, select_actions
 from repro_torch.core.vecenv import (PipelineTables, _gather, _placement, decode_action,
@@ -561,10 +564,19 @@ def _backlog(state: RuntimeState) -> torch.Tensor:
 
 # ------------------------------------------------------------------ rollout --
 
+def _use_graphs(dev: torch.device, capture: bool | None) -> bool:
+    """Blocks in CUDA graphs: by default on a CUDA device, never while the
+    sanitizer is on (a replayed graph bypasses the dispatcher)."""
+    if sanitize.enabled():
+        return False
+    return dev.type == "cuda" if capture is None else capture
+
+
 def _observe(tables: PipelineTables, state: RuntimeState, load: torch.Tensor):
     return observe_cfg(tables, state.z.long(), state.f.long(), state.b.long(), load)
 
 
+@sanitize.checked(errors=sanitize.NAN_DIV_ERRORS)
 @torch.no_grad()
 def vec_rollout(params: Policy, tables: PipelineTables, eps: EpisodeArrivals,
                 generators: list[torch.Generator] | None, *, n_steps: int,
@@ -582,7 +594,7 @@ def vec_rollout(params: Policy, tables: PipelineTables, eps: EpisodeArrivals,
     eps = to_device(eps, dev)
     E = eps.times.shape[0]
     loop = EventLoop(tables, E, max_wait, device=dev,
-                     capture=dev.type == "cuda" if capture is None else capture)
+                     capture=_use_graphs(dev, capture))
     state = init_state(tables, eps)
     obs = _observe(tables, state, eps.load_obs[:, 0])
     noise = None
@@ -616,6 +628,7 @@ def rollout(params: Policy, tables: PipelineTables, ep: EpisodeArrivals,
     return {k: (v[0] if isinstance(v, torch.Tensor) else v) for k, v in traj.items()}
 
 
+@sanitize.checked(errors=sanitize.NAN_DIV_ERRORS)
 @torch.no_grad()
 def replay(tables: PipelineTables, ep: EpisodeArrivals, actions: torch.Tensor, *,
            n_steps: int, weights: QoSWeights, max_wait: float = DEFAULT_MAX_WAIT,
@@ -627,7 +640,7 @@ def replay(tables: PipelineTables, ep: EpisodeArrivals, actions: torch.Tensor, *
     dev = tables.accuracy.device
     eps = to_device(stack_episodes([ep]), dev)
     loop = EventLoop(tables, 1, max_wait, device=dev,
-                     capture=dev.type == "cuda" if capture is None else capture)
+                     capture=_use_graphs(dev, capture))
     state = init_state(tables, eps)
     actions = torch.as_tensor(actions, device=dev)
     out = []

@@ -22,8 +22,9 @@ Scope, mirroring exactly what the PPO training path constructs:
 The env itself is deterministic given its trace — all rollout stochasticity
 comes from the policy's sampling noise, drawn per environment from that
 environment's own ``torch.Generator``, so rollouts are permutation-invariant
-along the env axis. The reference's checkify sanitizer (``@sanitize.checked``)
-has no counterpart here yet (ROADMAP Queue 1 item 13).
+along the env axis. ``rollout`` and ``vec_rollout`` run under the twins'
+sanitizer (``analysis.sanitize``) when it is on, as the reference's are
+checkified.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from typing import NamedTuple
 import numpy as np  # reprolint: ignore[RPL002] host-side table building and generator seeding only
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core.mdp import (ADAPTATION_INTERVAL, COLD_START_FRACTION,
                                   Pipeline, QoSWeights)
 from repro_torch.core.policy import (Policy, apply_policy, gumbel_noise,
@@ -300,6 +302,7 @@ def env_generators(seed: int, env_seeds, device) -> list[torch.Generator]:
     return gens
 
 
+@sanitize.checked
 @torch.no_grad()
 def vec_rollout(params: Policy, tables: PipelineTables, traces: torch.Tensor,
                 generators: list[torch.Generator] | None, *, n_steps: int,
@@ -332,6 +335,7 @@ def vec_rollout(params: Policy, tables: PipelineTables, traces: torch.Tensor,
     return traj
 
 
+@sanitize.checked
 def rollout(params: Policy, tables: PipelineTables, trace: torch.Tensor,
             generator: torch.Generator | None, *, n_steps: int,
             weights: QoSWeights, greedy: bool = False):

@@ -7,9 +7,8 @@ reference's once the wall-clock keys are dropped. The registered ``opd``
 controller trains through ``Session.train`` on the session's device and
 serves, and so does ``proactive``, the OPD policy inside the forecast-driven
 pre-warm wrapper; with the same NumPy stub forecaster and carried policy
-weights the three proactive controllers serve as the reference's do. Parts
-the port does not have yet raise ``NotImplementedError`` naming their
-ROADMAP item.
+weights the three proactive controllers serve as the reference's do.
+``debug_checkify`` turns the twins' sanitizer on, as the reference's does.
 """
 import json
 import sys
@@ -23,6 +22,7 @@ import jax  # noqa: E402
 from repro import api as japi  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
 from repro_torch import api  # noqa: E402
+from repro_torch.analysis import sanitize  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 
 WALL_KEYS = ("decide_wall_s", "serve_wall_s", "decision_times", "decision_time_total")
@@ -299,8 +299,14 @@ def test_unported_options_raise(monkeypatch):
     with pytest.raises(ValueError, match="unknown perf_source"):
         api.replace(api.get_pipeline("serve2"), perf_source="nope").build()
     exp = experiment(api, "greedy", "runtime")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        api.Session(exp, debug_checkify=True)
+    # debug_checkify is ported: the session runs its twins under the
+    # sanitizer, through the constructor and through from_spec alike
+    for sess in (api.Session(exp, debug_checkify=True),
+                 api.Session.from_spec(json.dumps(exp.to_dict()), debug_checkify=True)):
+        assert sess.debug_checkify
+        with sess._sanitize_scope():
+            assert sanitize.enabled()
+        assert not sanitize.enabled()
     # a scenario's forecaster trains on the session's device: asking for the
     # card on a host without one raises, it never falls back to the CPU
     scen = api.replace(exp.scenario, predictor="lstm-multi")
