@@ -28,7 +28,7 @@ A record is ``OK`` when its counted peak fits the card's 80 GB,
 ``DOES_NOT_FIT`` (with the counted bytes) when it does not, or ``SKIP``
 (the reference's ``SKIPS``). ``--measure K`` then runs up to K records that
 fit, decode shapes first, on the device for real: random bf16 weights from
-seed 0, one warm-up step, the min of ``--reps`` synchronised steps,
+seed 0, one warm-up step, the min of ``REPS`` synchronised steps,
 ``torch.cuda.max_memory_allocated`` against the counted peak, and the share
 of the bound. A decode cache holds its whole context (every slot valid), as
 the reference's ``cache_specs``. ``--device cpu --smoke`` counts and runs
@@ -61,6 +61,8 @@ PEAK_FLOPS = 989e12     # bf16 dense tensor cores, H100 SXM data sheet
 HBM_BW = 3.35e12        # bytes/s, H100 SXM data sheet
 HBM_BYTES = 80e9        # the card's memory, H100 SXM data sheet
 DEVICE = "H100 SXM (1 card)"
+REPS = 5                # synchronised steps of a measured record, after one warm-up
+COUNT_WORKERS = 8       # counting processes at most (each holds its own torch)
 
 SKIPS = {
     # enc-dec with 448 target positions has no 500k-decode regime (DESIGN.md)
@@ -166,12 +168,14 @@ def count_points(cfg, shape) -> tuple[tuple, tuple]:
 
 
 def _count_once(cfg, shape) -> dict:
+    t0 = time.perf_counter()
     with FakeTensorMode():
         step, args, inputs = build_step(cfg, shape, "cpu")
         out, cost = step_cost.measure(step, *args, inputs=inputs)
-        return {"flops": cost.flops, "attention_flops": cost.attention_flops,
-                "aten_bytes": cost.aten_bytes, "peak_bytes": cost.peak_bytes,
-                "min_bytes": _min_bytes(cfg, shape, args, out), **cost.calls}
+        counted = {"flops": cost.flops, "attention_flops": cost.attention_flops,
+                   "aten_bytes": cost.aten_bytes, "peak_bytes": cost.peak_bytes,
+                   "min_bytes": _min_bytes(cfg, shape, args, out), **cost.calls}
+    return {**counted, "count_s": time.perf_counter() - t0}
 
 
 def _lagrange(xs, ys, x) -> Fraction:
@@ -186,18 +190,27 @@ def _lagrange(xs, ys, x) -> Fraction:
     return total
 
 
-def extrapolated_count(cfg, shape) -> tuple[dict, dict]:
+def count_steps(cfg, shape) -> list[tuple]:
+    """The (config, shape) steps ``extrapolated_count`` counts: both unit
+    counts at each sequence length of ``count_points``, in that order."""
+    period, _ = layer_units(cfg)
+    units, seqs = count_points(cfg, shape)
+    return [(cfg.replace(n_layers=u * period),
+             InputShape(shape.name, S, shape.global_batch, shape.kind))
+            for S in seqs for u in units]
+
+
+def extrapolated_count(cfg, shape, once=_count_once) -> tuple[dict, dict]:
     """The counters of ``cfg``'s step at ``shape`` from the smaller steps of
-    ``count_points``, exactly for flops, calls and the minimum and aten
-    bytes; the peak is exact where it grows by the same bytes per unit and
-    along S. -> (counters, how they were counted)."""
+    ``count_steps`` (each counted by ``once``), exactly for flops, calls and
+    the minimum and aten bytes; the peak is exact where it grows by the same
+    bytes per unit and along S. -> (counters, how they were counted)."""
     period, units = layer_units(cfg)
     (u0, u1), seqs = count_points(cfg, shape)
+    counted = [once(*step) for step in count_steps(cfg, shape)]
     keys = _COUNTED + ("flash_attention", "decode_attention")
     a, b = {k: [] for k in keys}, {k: [] for k in keys}
-    for S in seqs:
-        sub = InputShape(shape.name, S, shape.global_batch, shape.kind)
-        f0, f1 = (_count_once(cfg.replace(n_layers=u * period), sub) for u in (u0, u1))
+    for f0, f1 in zip(counted[::2], counted[1::2], strict=True):
         for k in keys:
             slope = (Fraction(f1[k]) - Fraction(f0[k])) / (u1 - u0)
             b[k].append(slope)
@@ -205,15 +218,31 @@ def extrapolated_count(cfg, shape) -> tuple[dict, dict]:
     out = {k: float(_lagrange(seqs, a[k], shape.seq_len)
                     + units * _lagrange(seqs, b[k], shape.seq_len)) for k in keys}
     out["calls"] = {k: int(out.pop(k)) for k in ("flash_attention", "decode_attention")}
+    out["count_s"] = sum(f["count_s"] for f in counted)
     return out, {"units": [u0, u1], "of": units, "layers_per_unit": period,
                  "seq_points": list(seqs)}
 
 
-def count(arch: str, shape_name: str, *, smoke: bool = False, direct: bool = False) -> dict:
+def _direct(cfg, direct: bool) -> bool:
+    return direct or bool(cfg.n_layers % layer_units(cfg)[0])
+
+
+def steps_of(arch: str, shape_name: str, *, smoke: bool = False) -> list[tuple]:
+    """The (config, shape) steps ``count`` counts for one record."""
+    if (arch, shape_name) in SKIPS:
+        return []
+    cfg, shape = arch_config(arch, smoke=smoke), INPUT_SHAPES[shape_name]
+    return [(cfg, shape)] if _direct(cfg, False) else count_steps(cfg, shape)
+
+
+def count(arch: str, shape_name: str, *, smoke: bool = False, direct: bool = False,
+          once=_count_once) -> dict:
     """The counted record of one (arch, shape) on the card's (1, 1) mesh;
     ``direct`` (or a depth that is no whole number of layer units, as the
     xLSTM's smoke config) counts the whole step once instead of
-    extrapolating."""
+    extrapolating. ``once`` counts one step (``count_all`` hands in the
+    steps its workers counted); ``count_s`` sums the seconds its steps
+    took."""
     shape = INPUT_SHAPES[shape_name]
     rec = {"arch": arch, "shape": shape_name, "mesh": "1x1", "device": DEVICE,
            "smoke": smoke}
@@ -221,7 +250,6 @@ def count(arch: str, shape_name: str, *, smoke: bool = False, direct: bool = Fal
         return {**rec, "status": "SKIP", "reason": SKIPS[(arch, shape_name)]}
     cfg = arch_config(arch, smoke=smoke)
     mesh = make_device_mesh("meta")
-    t0 = time.perf_counter()
     params = shd.abstract_params(cfg)
     batch = steps.batch_specs(cfg, shape)                # meta tensors
     resident = {
@@ -238,13 +266,13 @@ def count(arch: str, shape_name: str, *, smoke: bool = False, direct: bool = Fal
         cache = shd.abstract_cache(cfg, shape)
         resident["cache"] = shd.tree_shard_bytes(
             cache, shd.cache_shardings(cfg, shape, mesh, cache=cache), mesh)
-    if direct or cfg.n_layers % layer_units(cfg)[0]:
-        counted, how = _count_once(cfg, shape), {"direct": True}
+    if _direct(cfg, direct):
+        counted, how = dict(once(cfg, shape)), {"direct": True}
         counted["calls"] = {k: counted.pop(k) for k in ("flash_attention",
                                                          "decode_attention")}
     else:
-        counted, how = extrapolated_count(cfg, shape)
-    count_s = time.perf_counter() - t0
+        counted, how = extrapolated_count(cfg, shape, once)
+    count_s = counted.pop("count_s")
     mf = model_flops(cfg, shape)
     terms = {"compute_s": counted["flops"] / PEAK_FLOPS,
              "memory_s": counted["min_bytes"] / HBM_BW}
@@ -271,8 +299,8 @@ def count(arch: str, shape_name: str, *, smoke: bool = False, direct: bool = Fal
     }
 
 
-def measure(rec: dict, *, device="cuda", reps: int = 3) -> dict:
-    """Run the record's step for real on ``device``: ms (min of ``reps``
+def measure(rec: dict, *, device="cuda") -> dict:
+    """Run the record's step for real on ``device``: ms (min of ``REPS``
     synchronised steps after one warm-up), the peak of the memory it
     allocates (its inputs and the step's; not what the caller already held)
     against the counted peak on CUDA, and the share of the bound."""
@@ -291,7 +319,7 @@ def measure(rec: dict, *, device="cuda", reps: int = 3) -> dict:
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
         times = []
-        for _ in range(1 + reps):
+        for _ in range(1 + REPS):
             if cuda:
                 torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
@@ -302,7 +330,7 @@ def measure(rec: dict, *, device="cuda", reps: int = 3) -> dict:
             del out
     ms = min(times[1:]) * 1e3
     m = {"device": torch.cuda.get_device_name(dev) if cuda else "cpu (host time)",
-         "ms": ms, "first_step_ms": times[0] * 1e3, "reps": reps}
+         "ms": ms, "first_step_ms": times[0] * 1e3, "reps": REPS}
     if cuda:
         peak = torch.cuda.max_memory_allocated(dev) - base
         m.update(peak_bytes=peak, peak_over_counted=peak / rec["peak_bytes"],
@@ -320,25 +348,32 @@ def pick(records: list[dict], k: int) -> list[dict]:
     return ok[:k]
 
 
-def _count_worker(job) -> dict:
+def _count_worker(step) -> dict:
     torch.set_num_threads(1)
-    return count(*job[:2], smoke=job[2])
+    return _count_once(*step)
 
 
-def count_all(archs, shapes, *, smoke: bool = False, workers: int = 1, log=print) -> list[dict]:
-    """``count`` of every (arch, shape), in ``workers`` spawned processes
-    (the sequence-looped recurrent steps first: they take longest), in the
-    order given."""
-    jobs = [(a, s, smoke) for a in archs for s in shapes]
-    slow = sorted(jobs, key=lambda j: ARCHS[j[0]].family not in ("ssm", "hybrid")
-                  or INPUT_SHAPES[j[1]].kind == "decode")
+def count_all(archs, shapes, *, smoke: bool = False, workers: int | None = None,
+              log=print) -> list[dict]:
+    """``count`` of every (arch, shape), in the order given. Every step it
+    counts is a job of its own, and off the smoke configs the jobs go to
+    ``workers`` spawned processes (by default one per core, at most
+    COUNT_WORKERS), the longest first: the xLSTM's train step takes minutes."""
+    jobs = [(a, s) for a in archs for s in shapes]
+    if workers is None:
+        workers = 1 if smoke else min(COUNT_WORKERS, os.cpu_count() or 1)
+    once = _count_once
     if workers > 1:
+        steps = list(dict.fromkeys(st for a, s in jobs for st in steps_of(a, s, smoke=smoke)))
+        steps.sort(key=lambda st: (st[0].family not in ("ssm", "hybrid")
+                                   or st[1].kind == "decode", -st[1].seq_len))
         ctx = multiprocessing.get_context("spawn")
         with ctx.Pool(workers) as pool:
-            done = dict(zip(slow, pool.map(_count_worker, slow, chunksize=1), strict=True))
-    else:
-        done = {j: count(*j[:2], smoke=smoke) for j in slow}
-    records = [done[j] for j in jobs]
+            done = dict(zip(steps, pool.map(_count_worker, steps, chunksize=1), strict=True))
+
+        def once(cfg, shape):
+            return done[cfg, shape]
+    records = [count(a, s, smoke=smoke, once=once) for a, s in jobs]
     for rec in records:
         if rec["status"] == "SKIP":
             log(f"{rec['arch']:26s} {rec['shape']:12s} SKIP ({rec['reason']})")
@@ -362,10 +397,10 @@ def write(records: list[dict], out: str):
 
 
 def run(archs, shapes, *, smoke: bool = False, measure_k: int = 0, device="cuda",
-        reps: int = 3, workers: int = 1, out: str | None = None, log=print) -> list[dict]:
-    records = count_all(archs, shapes, smoke=smoke, workers=workers, log=log)
+        out: str | None = None, log=print) -> list[dict]:
+    records = count_all(archs, shapes, smoke=smoke, log=log)
     for rec in pick(records, measure_k):
-        rec["measured"] = measure(rec, device=device, reps=reps)
+        rec["measured"] = measure(rec, device=device)
         log(f"measured {rec['arch']} {rec['shape']}: {json.dumps(rec['measured'])}")
     if out:
         write(records, out)
@@ -382,16 +417,13 @@ def main(argv=None):
                     help="the archs' reduced configs (CPU rehearsal)")
     ap.add_argument("--measure", type=int, default=3,
                     help="run up to this many records that fit on the device")
-    ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--workers", type=int, default=1,
-                    help="processes that count (the xLSTM's train step alone takes minutes)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="chiprun_out/dryrun")
     args = ap.parse_args(argv)
     archs = list(ARCHS) if args.all or args.arch is None else [args.arch]
     shapes = list(INPUT_SHAPES) if args.all or args.shape is None else [args.shape]
     run(archs, shapes, smoke=args.smoke, measure_k=args.measure, device=args.device,
-        reps=args.reps, workers=args.workers, out=args.out)
+        out=args.out)
     print("dry-run complete")
 
 

@@ -14,7 +14,7 @@
   the whole step for flops, calls and bytes;
 - ``StageExecutor.cost`` is what it was before it moved onto step_cost;
 - the launcher writes a record per (arch, shape) with a status, and runs
-  one that fits.
+  one that fits; counting in worker processes changes no record.
 """
 import json
 import math
@@ -157,6 +157,17 @@ def test_extrapolated_count_equals_the_whole_step(arch, shape, monkeypatch):
     assert fitted["peak_bytes"] == pytest.approx(direct["peak_bytes"], rel=0.02)
 
 
+def test_count_all_in_worker_processes_equals_one_process():
+    """Records whose steps were counted as separate jobs in spawned
+    processes equal those counted in this one, but for the seconds."""
+    archs, shapes = ["llama3.2-1b", "zamba2-2.7b", "xlstm-125m"], ["train_4k", "decode_32k"]
+    serial = dryrun.count_all(archs, shapes, smoke=True, workers=1, log=lambda m: None)
+    spawned = dryrun.count_all(archs, shapes, smoke=True, workers=2, log=lambda m: None)
+    for one, two in zip(serial, spawned, strict=True):
+        assert {**one, "count_s": 0} == {**two, "count_s": 0}
+        assert two["count_s"] > 0
+
+
 def _old_cost(entry):
     """StageExecutor.cost as it was before it moved onto step_cost."""
     from repro_torch.kernels import ops
@@ -192,7 +203,7 @@ def test_executor_cost_unchanged(arch, flash, monkeypatch):
 
 def test_launcher_writes_a_record_per_pair_and_runs_one(tmp_path):
     dryrun.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", "--measure", "1",
-                 "--reps", "1", "--out", str(tmp_path)])
+                 "--out", str(tmp_path)])
     recs = [json.loads(p.read_text()) for p in sorted(tmp_path.glob("*.json"))]
     assert {r["shape"] for r in recs} == set(INPUT_SHAPES)
     for r in recs:

@@ -17,6 +17,12 @@ the CPU, at the smoke configs, against the reference.
   MoE layers replay the reference's dispatch plans (a choice near a tie
   turns on the last bits, which XLA's bf16 and torch's round differently;
   ``tests/test_torch_moe.py`` holds the routing itself in f32).
+- At zamba2's full depth (54 layers; smoke width) two correct attention
+  paths move its bf16 logits apart by more than that tolerance, in the
+  reference (its Pallas kernel against its plain attention) and in the
+  port (its plain attention against torch's own), while in f32 from the
+  same weights each pair agrees within 1e-3: why the GPU smoke test holds
+  zamba2's kernel path in f32.
 - ``StageServer`` maps a variant index by ``z % len(variants)`` while the
   pipeline orders a task's variants arch-major over quants, so a quant
   index selects another arch in a live run: the reference's behaviour,
@@ -29,6 +35,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 import jax  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from test_torch_families import carry  # noqa: E402
 
@@ -37,6 +44,8 @@ from repro.configs import ARCHS as JARCHS  # noqa: E402
 from repro.models import api as jmodels  # noqa: E402
 from repro.serving import engine as jengine  # noqa: E402
 from repro_torch import api  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import api as models  # noqa: E402
 from repro_torch.models.convert import _as_tensor as convert_tensor  # noqa: E402
 
@@ -151,6 +160,56 @@ def test_stage_logits_match_reference_in_bf16(stage, monkeypatch):
         assert got.dtype == torch.bfloat16 and np.isfinite(want).all()
         err = np.abs(got.float().numpy() - want).max() / max(1.0, np.abs(want).max())
         assert err < BF16_TOL, (tcfg.name, err)
+
+
+def rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+def test_zamba2_at_depth_in_bf16_parts_two_correct_attention_paths(monkeypatch):
+    """zamba2 at its full depth (54 layers, the shared block applied 9
+    times) and smoke width: in bf16 the reference's Pallas flash kernel
+    (interpret mode) and its plain attention move the logits apart by more
+    than BF16_TOL, and so do the port's plain attention and torch's
+    ``scaled_dot_product_attention`` on the reference's weights; in f32,
+    from the same bf16 weights, each pair agrees within 1e-3."""
+    depth = dict(n_layers=54, attn_every=6, dtype="bfloat16", use_flash=True)
+    jcfg = JARCHS["zamba2-2.7b"].smoke().replace(**depth)
+    tcfg = ARCHS["zamba2-2.7b"].smoke().replace(**depth)
+    jp = jmodels.init_model(jax.random.PRNGKey(0), jcfg)
+    tokens = np.random.default_rng(3).integers(0, jcfg.vocab, (2, 32)).astype(np.int32)
+
+    def reference(params, dtype, flash):
+        cfg = jcfg.replace(dtype=dtype, use_flash=flash)
+        step = jax.jit(lambda p, t: jmodels.forward(p, {"tokens": t}, cfg)[0])
+        return step(params, jnp.asarray(tokens))
+
+    plain = ops.flash_attention
+
+    def library(q, k, v, *, causal=True, window=None):
+        assert window is None
+        out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                             v.transpose(1, 2), is_causal=causal)
+        return out.transpose(1, 2)
+
+    port = carry(models.init_model(0, tcfg, device="cpu"), jp)
+
+    def ported(cfg, attention):
+        monkeypatch.setattr(ops, "flash_attention", attention)
+        with torch.inference_mode():
+            return models.forward(port, {"tokens": torch.from_numpy(tokens)}, cfg)[0].float()
+
+    parted = {"reference": rel_err(reference(jp, "bfloat16", True),
+                                   reference(jp, "bfloat16", False)),
+              "port": rel_err(ported(tcfg, library), ported(tcfg, plain))}
+    wide = jax.tree.map(lambda x: x.astype(jnp.float32), jp)
+    port.float()
+    f32 = tcfg.replace(dtype="float32")
+    agreed = {"reference": rel_err(reference(wide, "float32", True),
+                                   reference(wide, "float32", False)),
+              "port": rel_err(ported(f32, library), ported(f32, plain))}
+    assert min(parted.values()) > BF16_TOL and max(agreed.values()) < 1e-3, (parted, agreed)
 
 
 def test_variant_index_aliases_across_quants_as_in_the_reference():
