@@ -117,6 +117,17 @@ Phases (any failure exits non-zero):
            1e-5, grad_norm 1e-4, params 1e-4); both kernel wrappers refuse
            an input that requires grad; the phase launches no attention
            kernel (training computes the reference's _sdpa)
+  figures  the paper's figures through launch/fig{7_convergence,45_workloads,
+           6_decision_time,3_predictor}.py at cut sizes: trained_opd on the
+           card (6 episodes) and fig7 on its history; fig45 on fluctuating
+           (200 s) and the bursty proactive section (160 s); fig6 on P1-P3
+           (2 decisions); fig3 on one regime, one epoch per network. Random,
+           Greedy and IPA equal device="cpu"; the card's policy and its CPU
+           copy take the same greedy actions over the fig45 episode (flips
+           only at near-ties); predict_batch card vs CPU 1e-5; served + shed
+           = offered, prewarms > 0 for proactive_capacity; every OPD d_t
+           below 1 s; no attention kernel launched; payloads under
+           chiprun_out/figures_smoke/
   dryrun   launch/dryrun.py: every (arch, INPUT_SHAPES) step counted on fake
            tensors on the card's (1, 1) mesh (params, moments, cache and
            batch bytes through distributed.sharding's rules, flops, minimum
@@ -2098,6 +2109,198 @@ def phase_train() -> dict:
     return {"flash_attention": 0, "decode_attention": 0}
 
 
+FIGURES_OUT = "chiprun_out/figures_smoke"
+FIG_EPISODES = 6            # trained_opd's episodes (the launchers' quick: 12)
+FIG45_HORIZON = 200         # fluctuating only (quick: the three regimes, 1200 s)
+FIG45_PROACTIVE = 160       # bursty only (quick: bursty and ramp, 160 s)
+FIG6_STEPS = 2              # P1-P3 (quick: P1-P4, 10 decisions)
+DT_LIMIT_S = 1.0            # a tenth of the 10 s adaptation interval
+
+
+@contextlib.contextmanager
+def captured_serves(reports: list):
+    """Append every ``Session.serve`` report made inside the block."""
+    from repro_torch.api import Session
+    serve = Session.serve
+
+    def keep(self, **kw):
+        rep = serve(self, **kw)
+        reports.append(rep)
+        return rep
+
+    Session.serve = keep
+    try:
+        yield
+    finally:
+        Session.serve = serve
+
+
+def rows_line(tag: str, rows) -> None:
+    for r in rows:
+        print(f"figures: {tag}: " + ",".join(str(x) for x in r), flush=True)
+
+
+def phase_figures() -> dict:
+    """The paper's figures through the port's launchers (launch/fig*.py) on
+    the card at cut sizes: bench.trained_opd (FIG_EPISODES), fig7 on its
+    history, fig45 on fluctuating (FIG45_HORIZON) with the bursty proactive
+    section (FIG45_PROACTIVE), fig6 on P1-P3 (FIG6_STEPS decisions), fig3 on
+    one regime with one epoch per network. Gates: Random, Greedy and IPA
+    equal the same episodes with device="cpu"; the card's policy and its CPU
+    copy take the same greedy actions over the fig45 episode (a flip only
+    at a near-tie); predict_batch card vs CPU within 1e-5; served + shed =
+    offered in every runtime serve and prewarms > 0 for proactive_capacity;
+    every OPD d_t below DT_LIMIT_S; no attention kernel launched."""
+    import copy
+
+    from repro_torch import api
+    from repro_torch.cluster import PipelineEnv
+    from repro_torch.core import OPDPolicy, policy, predictor
+    from repro_torch.kernels import ops
+    from repro_torch.launch import bench
+    from repro_torch.launch import fig3_predictor as fig3
+    from repro_torch.launch import fig6_decision_time as fig6
+    from repro_torch.launch import fig7_convergence as fig7
+    from repro_torch.launch import fig45_workloads as fig45
+
+    before = ops.launch_counts()
+    bench.set_results_dir(FIGURES_OUT)
+    walls = {}
+
+    def load(name):
+        with open(os.path.join(FIGURES_OUT, f"{name}.json")) as f:
+            return json.load(f)
+
+    def stamp(name, t):
+        walls[name] = round(time.perf_counter() - t, 1)
+
+    try:
+        t = time.perf_counter()
+        params, hist = bench.trained_opd(FIG_EPISODES, force=True, device="cuda",
+                                         log=lambda m: print(f"figures:{m}", flush=True))
+        stamp("trained_opd", t)
+        check(all(p.device.type == "cuda" for p in params.parameters()),
+              "figures: the policy is not on the card")
+        check(all(np.isfinite(hist[k]).all() for k in ("reward", "loss", "value_loss")),
+              "figures: non-finite training history")
+        t = time.perf_counter()
+        rows_line("fig7", fig7.run(device="cuda", episodes=FIG_EPISODES))
+        stamp("fig7", t)
+        check(load("fig7_convergence")["reward"] == hist["reward"],
+              "figures: fig7's history is not trained_opd's")
+
+        reports = []
+        t = time.perf_counter()
+        with captured_serves(reports):
+            rows_line("fig45", fig45.run(device="cuda", episodes=FIG_EPISODES,
+                                         regimes=("fluctuating",), horizon=FIG45_HORIZON,
+                                         proactive_regimes=("bursty",),
+                                         proactive_horizon=FIG45_PROACTIVE))
+        stamp("fig45", t)
+        p45 = load("fig45_workloads")
+        pipeline = api.get_pipeline("paper-4stage")
+        by_name = {(r["experiment"]["backend"], r["experiment"]["controller"]["name"]): r
+                   for r in reports}
+        for name in ("random", "greedy", "ipa"):
+            want = fig45._episode("fluctuating", name, None, pipeline, FIG45_HORIZON,
+                                  device="cpu")
+            got = by_name[("analytic", name)]
+            check(all(got[k] == want[k] for k in ("cost", "qos", "rewards", "configs")),
+                  f"figures: fig45 {name} on the card differs from device='cpu'")
+        print("figures: fig45 random, greedy, ipa: cost, qos, rewards and configurations "
+              "equal the same episodes with device='cpu'", flush=True)
+
+        # the card's greedy policy and its CPU copy on the same states
+        pipe = pipeline.build()
+        scen = api.replace(api.get_scenario("fluctuating"), seed=fig45.EVAL_SEED,
+                           horizon=FIG45_HORIZON)
+        env = PipelineEnv(pipe, scen.eval_trace(), seed=scen.seed)
+        env.reset()
+        cpu_params = copy.deepcopy(params).cpu()
+        on_card, on_cpu = (OPDPolicy(pipe, params, device="cuda"),
+                           OPDPolicy(pipe, cpu_params, device="cpu"))
+        configs, ties, done = [], [], False
+        while not done:
+            obs = env.observe()
+            a, b = on_card.decide(obs), on_cpu.decide(obs)
+            ca, cb = policy.config_to_action(pipe, a), policy.config_to_action(pipe, b)
+            if not np.array_equal(ca, cb):
+                with torch.no_grad():
+                    logits, _ = policy.apply_policy(
+                        cpu_params, torch.as_tensor(obs.state)[None])
+                for h in np.flatnonzero(ca != cb):
+                    top = torch.topk(logits[h][0], 2).values
+                    ties.append((len(configs), int(h), (top[0] - top[1]).item()))
+            configs.append([list(a.z), list(a.f), list(a.b)])
+            _, _, done, _ = env.step(a)
+        print(f"figures: fig45 opd, card vs CPU copy on the card's {len(configs)} states: "
+              f"near-tie flips {ties}", flush=True)
+        check(all(gap < 1e-4 for *_, gap in ties), f"figures: greedy actions differ at {ties}")
+        check(configs == by_name[("analytic", "opd")]["configs"],
+              "figures: fig45's opd episode is not the trained policy's")
+
+        runtime = [r for r in reports if r["experiment"]["backend"] == "runtime"]
+        for r in runtime:
+            s = r["summary"]
+            check(s["served"] + s["shed"] == s["submitted"] > 0,
+                  f"figures: {r['experiment']['controller']['name']} served {s['served']} "
+                  f"+ shed {s['shed']} != offered {s['submitted']}")
+        pro = p45["proactive"]["bursty"]
+        check(pro["proactive_capacity"]["prewarms"] > 0,
+              "figures: proactive_capacity made no prewarm")
+        print("figures: fig45 proactive (bursty, " + ", ".join(
+            f"{arm}: p99 {v['p99']:.3f} s, cost {v['cost']:.3f}, served {v['served']}, "
+            f"prewarms {v['prewarms']}" for arm, v in pro.items())
+            + f"); served + shed = offered in all {len(runtime)} runtime serves", flush=True)
+
+        t = time.perf_counter()
+        rows_line("fig6", fig6.run(device="cuda", steps=FIG6_STEPS,
+                                   pipelines=fig6.PIPELINES[:3]))
+        stamp("fig6", t)
+        p6 = load("fig6_decision_time")
+        dts = [d for r in reports for d in r.get("decision_times", [])
+               if r["experiment"]["controller"]["name"] == "opd"]
+        dts += [p6[s.name]["opd_H_s"] / FIG6_STEPS for s in fig6.PIPELINES[:3]]
+        print("figures: fig6 " + ", ".join(
+            f"{s.name}: IPA H {p6[s.name]['ipa_H_s']:.4f} s, OPD H {p6[s.name]['opd_H_s']:.4f} s"
+            for s in fig6.PIPELINES[:3]) + f"; OPD d_t over {len(dts)} decisions: median "
+            f"{float(np.median(dts)) * 1e3:.3f} ms, max {max(dts) * 1e3:.3f} ms", flush=True)
+        check(max(dts) < DT_LIMIT_S, f"figures: an OPD d_t of {max(dts)} s")
+
+        trained = []
+        train = fig3.train_predictor
+
+        def keep(*a, **kw):
+            trained.append(train(*a, **kw))
+            return trained[-1]
+
+        fig3.train_predictor = keep
+        t = time.perf_counter()
+        try:
+            rows_line("fig3", fig3.run(device="cuda", regimes=("fluctuating",), epochs=1,
+                                       forecast_epochs=1))
+        finally:
+            fig3.train_predictor = train
+        stamp("fig3", t)
+        X, _ = predictor.make_dataset([fig3.make_trace("fluctuating", seed=9)],
+                                      scale=fig3.SCALE)
+        with torch.no_grad():
+            g = predictor.predict_batch(trained[0], torch.as_tensor(X, device="cuda"))
+            c = predictor.predict_batch(copy.deepcopy(trained[0]).cpu(), torch.as_tensor(X))
+        p_err = (g.cpu() - c).abs().max().item()
+        print(f"figures: fig3 predict_batch of {len(X)} windows card vs CPU max abs err "
+              f"{p_err:.3e} (tol 1e-5); predict latency "
+              f"{load('fig3_predictor')['fluctuating']['predict_latency_ms']:.3f} ms", flush=True)
+        check(bool(torch.isfinite(g).all()), "figures: non-finite predictor output")
+        check(p_err < 1e-5, f"figures: predict_batch card vs CPU off by {p_err}")
+    finally:
+        bench.set_results_dir(None)
+    print(f"figures: walls s {walls}; payloads under {FIGURES_OUT}/", flush=True)
+    check(ops.launch_counts() == before,
+          f"figures: the figures phase launched attention kernels {ops.launch_counts()}")
+    return {"flash_attention": 0, "decode_attention": 0}
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="GPU smoke test of the PyTorch/CUDA port")
@@ -2162,6 +2365,7 @@ def run_all(smi: str):
     paper4_counts = timed("paper4", phase_paper4)
     twin_counts = timed("twin", phase_twin)
     train_counts = timed("train", phase_train)
+    figures_counts = timed("figures", phase_figures)
     dryrun_counts = timed("dryrun", phase_dryrun)
 
     kernels = []
@@ -2169,13 +2373,13 @@ def run_all(smi: str):
         launches = (serve_counts[name] + decode_counts[name] + runtime_counts[name]
                     + opd_counts[name] + forecast_counts[name] + calibrate_counts[name]
                     + families_counts[name] + paper4_counts[name] + twin_counts[name]
-                    + train_counts[name] + dryrun_counts[name])
+                    + train_counts[name] + figures_counts[name] + dryrun_counts[name])
         print(f"launches {name}: serve {serve_counts[name]}, decode {decode_counts[name]}, "
               f"runtime {runtime_counts[name]}, opd {opd_counts[name]}, forecast "
               f"{forecast_counts[name]}, calibrate {calibrate_counts[name]}, families "
               f"{families_counts[name]}, paper4 {paper4_counts[name]}, twin "
-              f"{twin_counts[name]}, train {train_counts[name]}, dryrun "
-              f"{dryrun_counts[name]}", flush=True)
+              f"{twin_counts[name]}, train {train_counts[name]}, figures "
+              f"{figures_counts[name]}, dryrun {dryrun_counts[name]}", flush=True)
         check(launches > 0, f"{name} never launched on the main path")
         row = summary[name]
         src, replaces = SOURCES[name]
@@ -2196,7 +2400,8 @@ def run_all(smi: str):
 # the phases that take no argument, by name (--phases)
 PHASES = {"runtime": phase_runtime, "opd": phase_opd, "forecast": phase_forecast,
           "calibrate": phase_calibrate, "families": phase_families, "paper4": phase_paper4,
-          "twin": phase_twin, "train": phase_train, "dryrun": phase_dryrun}
+          "twin": phase_twin, "train": phase_train, "figures": phase_figures,
+          "dryrun": phase_dryrun}
 
 
 if __name__ == "__main__":

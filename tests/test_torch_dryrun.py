@@ -50,6 +50,16 @@ from repro_torch.launch import dryrun, step_cost  # noqa: E402
 DECODE = [n for n, s in INPUT_SHAPES.items() if s.kind == "decode"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread, so that parallel test workers do not contend
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree_bytes(tree) -> int:
     return sum(math.prod(x.shape) * np.dtype(x.dtype).itemsize
                for x in jax.tree_util.tree_leaves(tree))

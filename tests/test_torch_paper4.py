@@ -58,6 +58,16 @@ jmoe = importlib.import_module("repro.nn.moe")
 tmoe = importlib.import_module("repro_torch.nn.moe")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread, so that parallel test workers do not contend
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def spec(ns, *, real=True):
     return ns.ExperimentSpec(
         pipeline=ns.get_pipeline("paper-4stage"),

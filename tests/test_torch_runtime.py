@@ -15,7 +15,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro import api as japi  # noqa: E402
 from repro.api import session as jsession  # noqa: E402
@@ -38,6 +38,16 @@ REF = SimpleNamespace(api=japi, mdp=jmdp, runtime=jruntime, arrivals=jarrivals,
 PORT = SimpleNamespace(api=api, mdp=mdp, runtime=runtime, arrivals=arrivals,
                        env=env, baselines=baselines, expert=expert)
 CONTROLLERS = ("greedy", "capacity", "expert", "ipa", "random")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread, so that parallel test workers do not contend
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def make_controller(ns, name, pipe, seed=3):

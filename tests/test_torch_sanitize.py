@@ -34,6 +34,16 @@ from repro_torch.serving import make_arrivals  # noqa: E402
 WEIGHTS = QoSWeights()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread, so that parallel test workers do not contend
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _no_override():
     """Every case starts and ends under env control."""
