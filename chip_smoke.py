@@ -119,8 +119,8 @@ Phases (any failure exits non-zero):
            kernel (training computes the reference's _sdpa)
   figures  the paper's figures through launch/fig{7_convergence,45_workloads,
            6_decision_time,3_predictor}.py at cut sizes: trained_opd on the
-           card (6 episodes) and fig7 on its history; fig45 on fluctuating
-           (200 s) and the bursty proactive section (160 s); fig6 on P1-P3
+           card (3 episodes) and fig7 on its history; fig45 on fluctuating
+           (100 s) and the bursty proactive section (120 s); fig6 on P1-P3
            (2 decisions); fig3 on one regime, one epoch per network. Random,
            Greedy and IPA equal device="cpu"; the card's policy and its CPU
            copy take the same greedy actions over the fig45 episode (flips
@@ -951,6 +951,26 @@ def to_cpu_opt(opt: dict) -> dict:
             "v": {k: v.cpu() for k, v in opt["v"].items()}, "step": opt["step"]}
 
 
+TIE_GAP = 1e-4              # a flipped greedy head's top-2 logit gap on the CPU copy
+
+
+def near_tie_gaps(cpu_params, state, a, b) -> list[tuple[int, float]]:
+    """(head, top-2 logit gap of the CPU copy at ``state``) for every head
+    where the greedy actions ``a`` and ``b`` differ."""
+    from repro_torch.core import policy
+
+    a, b = np.asarray(a), np.asarray(b)
+    if np.array_equal(a, b):
+        return []
+    with torch.no_grad():
+        logits, _ = policy.apply_policy(cpu_params, torch.as_tensor(state)[None])
+    gaps = []
+    for h in np.flatnonzero(a != b):
+        top = torch.topk(logits[h][0], 2).values
+        gaps.append((int(h), (top[0] - top[1]).item()))
+    return gaps
+
+
 def phase_opd() -> dict:
     """Train the registered opd controller on the card, hold its networks
     and one update against the same computation on the CPU, serve the live
@@ -1057,12 +1077,8 @@ def phase_opd() -> dict:
         t_div = int(diff[0]) if len(diff) else n_steps
         if t_div < n_steps:
             # a flipped greedy choice must be a near-tie; the episodes part there
-            with torch.no_grad():
-                logits, _ = policy.apply_policy(cpu_params, c_traj["states"][i, t_div][None])
-            for h, lg in enumerate(logits):
-                if g_act[i, t_div, h] != c_act[i, t_div, h]:
-                    top = torch.topk(lg[0], 2).values
-                    ties.append((i, t_div, h, (top[0] - top[1]).item()))
+            ties += [(i, t_div, h, gap) for h, gap in near_tie_gaps(
+                cpu_params, c_traj["states"][i, t_div], g_act[i, t_div], c_act[i, t_div])]
         compared += t_div
         if t_div:
             r_err = max(r_err, (g_traj["rewards"][i, :t_div].cpu()
@@ -1070,7 +1086,7 @@ def phase_opd() -> dict:
     print(f"opd: greedy vec_rollout of {len(envs)} envs x {n_steps} intervals, card vs "
           f"CPU: actions equal on {compared} of {len(envs) * n_steps} steps, near-tie "
           f"flips {ties}, rewards max abs err {r_err:.3e} (tol 1e-4)", flush=True)
-    check(all(gap < 1e-4 for *_, gap in ties), f"opd: greedy actions differ at {ties}")
+    check(all(gap < TIE_GAP for *_, gap in ties), f"opd: greedy actions differ at {ties}")
     check(r_err < 1e-4, f"opd: greedy rollout rewards card vs CPU off by {r_err}")
 
     # -- vec_rollout wall time on the paper's 4-stage pipeline
@@ -2110,9 +2126,9 @@ def phase_train() -> dict:
 
 
 FIGURES_OUT = "chiprun_out/figures_smoke"
-FIG_EPISODES = 6            # trained_opd's episodes (the launchers' quick: 12)
-FIG45_HORIZON = 200         # fluctuating only (quick: the three regimes, 1200 s)
-FIG45_PROACTIVE = 160       # bursty only (quick: bursty and ramp, 160 s)
+FIG_EPISODES = 3            # trained_opd's episodes (the launchers' quick: 12)
+FIG45_HORIZON = 100         # fluctuating only (quick: the three regimes, 1200 s)
+FIG45_PROACTIVE = 120       # bursty only (quick: bursty and ramp, 160 s)
 FIG6_STEPS = 2              # P1-P3 (quick: P1-P4, 10 decisions)
 DT_LIMIT_S = 1.0            # a tenth of the 10 s adaptation interval
 
@@ -2223,19 +2239,14 @@ def phase_figures() -> dict:
         while not done:
             obs = env.observe()
             a, b = on_card.decide(obs), on_cpu.decide(obs)
-            ca, cb = policy.config_to_action(pipe, a), policy.config_to_action(pipe, b)
-            if not np.array_equal(ca, cb):
-                with torch.no_grad():
-                    logits, _ = policy.apply_policy(
-                        cpu_params, torch.as_tensor(obs.state)[None])
-                for h in np.flatnonzero(ca != cb):
-                    top = torch.topk(logits[h][0], 2).values
-                    ties.append((len(configs), int(h), (top[0] - top[1]).item()))
+            ties += [(len(configs), h, gap) for h, gap in near_tie_gaps(
+                cpu_params, obs.state, policy.config_to_action(pipe, a),
+                policy.config_to_action(pipe, b))]
             configs.append([list(a.z), list(a.f), list(a.b)])
             _, _, done, _ = env.step(a)
         print(f"figures: fig45 opd, card vs CPU copy on the card's {len(configs)} states: "
               f"near-tie flips {ties}", flush=True)
-        check(all(gap < 1e-4 for *_, gap in ties), f"figures: greedy actions differ at {ties}")
+        check(all(gap < TIE_GAP for *_, gap in ties), f"figures: greedy actions differ at {ties}")
         check(configs == by_name[("analytic", "opd")]["configs"],
               "figures: fig45's opd episode is not the trained policy's")
 
@@ -2253,17 +2264,36 @@ def phase_figures() -> dict:
             f"prewarms {v['prewarms']}" for arm, v in pro.items())
             + f"); served + shed = offered in all {len(runtime)} runtime serves", flush=True)
 
+        ipa = by_name[("analytic", "ipa")]["decision_times"]
+        print(f"figures: fig45 ipa on paper-4stage, host time a decision over {len(ipa)} "
+              f"decisions: median {float(np.median(ipa)) * 1e3:.3f} ms, mean "
+              f"{float(np.mean(ipa)) * 1e3:.3f} ms, max {max(ipa) * 1e3:.3f} ms", flush=True)
+
+        episodes = []
+        run_episode = fig6.run_episode
+
+        def kept_episode(env, pol):
+            episodes.append((pol, run_episode(env, pol)))
+            return episodes[-1][1]
+
+        fig6.run_episode = kept_episode
         t = time.perf_counter()
-        rows_line("fig6", fig6.run(device="cuda", steps=FIG6_STEPS,
-                                   pipelines=fig6.PIPELINES[:3]))
+        try:
+            rows_line("fig6", fig6.run(device="cuda", steps=FIG6_STEPS,
+                                       pipelines=fig6.PIPELINES[:3]))
+        finally:
+            fig6.run_episode = run_episode
         stamp("fig6", t)
         p6 = load("fig6_decision_time")
         dts = [d for r in reports for d in r.get("decision_times", [])
                if r["experiment"]["controller"]["name"] == "opd"]
-        dts += [p6[s.name]["opd_H_s"] / FIG6_STEPS for s in fig6.PIPELINES[:3]]
+        fig6_dts = [r["decision_times"] for pol, r in episodes if isinstance(pol, OPDPolicy)]
+        check([len(d) for d in fig6_dts] == [FIG6_STEPS] * 3,
+              f"figures: fig6 timed {[len(d) for d in fig6_dts]} OPD decisions")
+        dts += [d for ds in fig6_dts for d in ds]
         print("figures: fig6 " + ", ".join(
             f"{s.name}: IPA H {p6[s.name]['ipa_H_s']:.4f} s, OPD H {p6[s.name]['opd_H_s']:.4f} s"
-            for s in fig6.PIPELINES[:3]) + f"; OPD d_t over {len(dts)} decisions: median "
+            for s in fig6.PIPELINES[:3]) + f"; every OPD d_t, {len(dts)} decisions: median "
             f"{float(np.median(dts)) * 1e3:.3f} ms, max {max(dts) * 1e3:.3f} ms", flush=True)
         check(max(dts) < DT_LIMIT_S, f"figures: an OPD d_t of {max(dts)} s")
 

@@ -16,6 +16,10 @@ Tolerances:
   ``opd`` with a JAX policy (``init_policy``, seed 0) carried across:
   configurations and costs bit for bit, rewards within 1e-5; the reactive
   ``capacity`` arm of ``_serving_episode`` (60 s, bursty and ramp): equal;
+  the bursty ``proactive_capacity`` arm (160 s) with the reference's
+  trained lstm-multi forecaster carried across: equal;
+- ``forecast_draws`` on the CPU: a seed's ``cpu``, ``device`` and
+  ``carried`` serves equal, the payload as saved;
 - fig45 ``--cluster edge-hetero-3 --quick`` (one regime, 400 s) with the
   committed policy carried into both ``trained_opd``: payloads equal, every
   ``reward`` within 1e-5, rows equal;
@@ -50,6 +54,7 @@ from repro.core import IPAPolicy as JIPAPolicy  # noqa: E402
 from repro.core import forecast as jforecast  # noqa: E402
 from repro.core import policy as jpolicy  # noqa: E402
 from repro_torch import api  # noqa: E402
+from repro_torch.api import registry  # noqa: E402
 from repro_torch.cluster import PipelineEnv, make_trace  # noqa: E402
 from repro_torch.core import IPAPolicy, forecast, policy, predictor  # noqa: E402
 from repro_torch.launch import bench  # noqa: E402
@@ -57,6 +62,7 @@ from repro_torch.launch import fig3_predictor as fig3  # noqa: E402
 from repro_torch.launch import fig6_decision_time as fig6  # noqa: E402
 from repro_torch.launch import fig7_convergence as fig7  # noqa: E402
 from repro_torch.launch import fig45_workloads as fig45  # noqa: E402
+from repro_torch.launch import forecast_draws  # noqa: E402
 from repro_torch.models.convert import load_jax_params  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -148,6 +154,44 @@ def test_fig45_reactive_capacity_arm_equals_the_reference(kind):
                                  horizon=60, predictor=None, device="cpu")
     assert got["served"] > 0
     assert got == want
+
+
+def test_fig45_proactive_arm_with_carried_forecaster_equals_the_reference(monkeypatch):
+    """The bursty ``proactive_capacity`` arm at the quick horizon, with the
+    reference's trained lstm-multi forecaster carried into the port."""
+    trained = []
+    train = jforecast.train_forecaster
+
+    def keep(traces, **kw):
+        trained.append(train(traces, **kw))
+        return trained[-1]
+
+    monkeypatch.setattr(jforecast, "train_forecaster", keep)
+    want = jfig45._serving_episode("bursty", "proactive-capacity", None,
+                                   japi.get_pipeline("paper-4stage"), horizon=160,
+                                   predictor="lstm-multi")
+    (jparams, scales), = trained
+    carried = load_jax_params(forecast.Forecaster(backbone="lstm", horizons=(5, 10, 20, 60)),
+                              jax.tree.map(np.asarray, jparams))
+    monkeypatch.setattr(forecast, "train_forecaster", lambda traces, **kw: (carried, scales))
+    got = fig45._serving_episode("bursty", "proactive-capacity", None,
+                                 api.get_pipeline("paper-4stage"), horizon=160,
+                                 predictor="lstm-multi", device="cpu")
+    assert got["prewarms"] > 0
+    assert got == want
+
+
+def test_forecast_draws_serves_every_arm(out_dirs, monkeypatch):
+    """On the CPU all three serves of a seed train and forecast alike."""
+    monkeypatch.setattr(registry, "_PREDICTORS", dict(registry._PREDICTORS))
+    api.register_predictor(api.replace(api.get_predictor("lstm-multi"), name="tiny", epochs=1))
+    got = forecast_draws.run(horizon=60, seeds=(3,), predictor="tiny", device="cpu")
+    res = got["seeds"]["3"]
+    assert res["cpu"] == res["device"] == res["carried"]
+    assert res["cpu"]["served"] > 0
+    saved = load(out_dirs[1], "forecast_draws_bursty_60")
+    assert saved.pop("device")["name"] == "cpu"
+    assert saved == json.loads(json.dumps(got))
 
 
 def test_fig45_cluster_quick_sweep_equals_the_reference(out_dirs, monkeypatch):
@@ -300,7 +344,8 @@ def test_trained_opd_cache_round_trip(out_dirs):
     lambda: fig6.run(quick=True),
     lambda: fig3.run(quick=True),
     lambda: bench.trained_opd(1, log=None),
-], ids=["fig7", "fig45", "fig6", "fig3", "trained_opd"])
+    lambda: forecast_draws.run(seeds=(0,)),
+], ids=["fig7", "fig45", "fig6", "fig3", "trained_opd", "forecast_draws"])
 def test_launchers_default_to_cuda(call, out_dirs, monkeypatch):
     """Asking for CUDA without a GPU raises through resolve_device."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
