@@ -138,6 +138,12 @@ Phases (any failure exits non-zero):
            run on the card (decode shapes first): ms, peak memory against
            the counted peak (at most +25%), share of the bound; records
            under chiprun_out/dryrun/
+  bench    the throughput launchers at cut sizes: launch/train_throughput.py
+           (one 300 s episode on the legacy loop, vec_rollout at 1 and 32
+           envs), launch/runtime_throughput.py --quick (served == submitted
+           in every scenario), launch/roofline.py over the dryrun phase's
+           records (one row per OK record); no attention kernel launched;
+           payloads under chiprun_out/bench_smoke/
 `--phases NAME ...` runs only the named phases after the build, without the
 kernel summary and the device line.
 The kernels phase also holds whisper-small's g = 1 shapes (flash B4 S32
@@ -1758,9 +1764,9 @@ DRYRUN_PEAK_SLACK = 1.25    # measured peak <= counted peak + 25%
 def phase_dryrun() -> dict:
     """launch/dryrun.py: every (arch, INPUT_SHAPES) record counted on fake
     tensors by the launcher on the host's CPU (its steps in worker
-    processes; the last phase, so that nothing it loads the host with runs
-    beside a timed phase), then up to DRYRUN_MEASURE records that fit run on
-    the card. Gates: every record has a status, counted flops > 0 where OK,
+    processes; after every phase but bench, so that nothing it loads the
+    host with runs beside a timed phase), then up to DRYRUN_MEASURE records
+    that fit run on the card. Gates: every record has a status, counted flops > 0 where OK,
     measured peak <= the counted peak + 25%."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import ops
@@ -1892,11 +1898,13 @@ def phase_twin() -> dict:
                                      ("cpu", "cpu", False, n_steps)):
         tables = vecenv.tables_from_pipeline(pipe, device=dev)
         t = time.perf_counter()
-        outs[tag] = {k: v.cpu() for k, v in rv.replay(
-            tables, ep, torch.from_numpy(actions), n_steps=steps, weights=w,
-            capture=capture).items()}
-        print(f"twin: replay of {steps} intervals on {tag}: "
-              f"{(time.perf_counter() - t) * 1e3:.1f} ms", flush=True)
+        out = rv.replay(tables, ep, torch.from_numpy(actions), n_steps=steps, weights=w,
+                        capture=capture)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t) * 1e3
+        outs[tag] = {k: v.cpu() for k, v in out.items()}
+        print(f"twin: replay of {steps} intervals on {tag}: {replay_ms:.1f} ms", flush=True)
     env = RuntimeEnv(pipe, make_arrivals(kind, rate=rate, seed=7), horizon=120)
     ref_r, ref_c = [], []
     for a in actions:
@@ -1925,9 +1933,10 @@ def phase_twin() -> dict:
     tables = vecenv.tables_from_pipeline(pipe, device="cuda")
     t = time.perf_counter()
     with sanitize.enabled_scope():
-        san = {k: v.cpu() for k, v in rv.replay(
-            tables, ep, torch.from_numpy(actions), n_steps=EAGER_STEPS, weights=w).items()}
+        san = rv.replay(tables, ep, torch.from_numpy(actions), n_steps=EAGER_STEPS, weights=w)
+    torch.cuda.synchronize()
     san_s = time.perf_counter() - t
+    san = {k: v.cpu() for k, v in san.items()}
     san_same = torch.equal(san["completed"], g["completed"][:EAGER_STEPS])
     san_err = rel_err(g["rewards"][:EAGER_STEPS], san["rewards"])
     z0 = int(actions[0][0]) % int(tables.n_variants[0])
@@ -2107,8 +2116,10 @@ def phase_train() -> dict:
     del g_model, c_model
 
     # -- each kernel wrapper refuses an input that requires grad
-    q = torch.randn(1, 64, 8, 64, device="cuda", requires_grad=True)
-    kv = torch.randn(1, 64, 2, 64, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    q = torch.randn(1, 64, 8, 64, device="cuda", generator=gen, requires_grad=True)
+    kv = torch.randn(1, 64, 2, 64, device="cuda", generator=gen)
     cases = {"flash_attention": lambda: fa.flash_attention(q, kv, kv),
              "decode_attention": lambda: da.decode_attention(
                  q[:, :1], kv, kv, torch.ones(1, 64, dtype=torch.bool, device="cuda"))}
@@ -2151,9 +2162,9 @@ def captured_serves(reports: list):
         Session.serve = serve
 
 
-def rows_line(tag: str, rows) -> None:
+def rows_line(tag: str, rows, phase: str = "figures") -> None:
     for r in rows:
-        print(f"figures: {tag}: " + ",".join(str(x) for x in r), flush=True)
+        print(f"{phase}: {tag}: " + ",".join(str(x) for x in r), flush=True)
 
 
 def phase_figures() -> dict:
@@ -2331,6 +2342,78 @@ def phase_figures() -> dict:
     return {"flash_attention": 0, "decode_attention": 0}
 
 
+BENCH_OUT = "chiprun_out/bench_smoke"
+BENCH_ENVS = (1, 32)        # train_throughput's num_envs points (full: 1, 8, 32)
+BENCH_SECONDS = 300         # train_throughput's episode: 30 decisions (full: 1200 s)
+
+
+def phase_bench() -> dict:
+    """The throughput launchers on the card at cut sizes, after the dryrun
+    phase: launch/train_throughput.py (one BENCH_SECONDS episode on the
+    legacy loop, vec_rollout at BENCH_ENVS, two timed passes each),
+    launch/runtime_throughput.py --quick (serve3 x every scenario, greedy,
+    60 s of virtual time: served == submitted), launch/roofline.py over the
+    dryrun phase's records in DRYRUN_OUT (one row per OK record, the measured
+    ones with their ms and share of the bound). Gates: finite positive
+    rates, every request served, the roofline's rows match the records, no
+    attention kernel launched."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import bench, roofline, runtime_throughput, train_throughput
+
+    before = ops.launch_counts()
+    bench.set_results_dir(BENCH_OUT)
+
+    def load(name):
+        with open(os.path.join(BENCH_OUT, f"{name}.json")) as f:
+            return json.load(f)
+
+    try:
+        t = time.perf_counter()
+        rows_line("train_throughput", train_throughput.run(
+            device="cuda", env_counts=BENCH_ENVS, seconds=BENCH_SECONDS, legacy_eps=1,
+            reps=2), phase="bench")
+        tp = load("train_throughput")
+        rates = [tp["legacy"]["episodes_per_s"]] + [
+            v["episodes_per_s"] for v in tp["vectorized"].values()]
+        print(f"bench: train_throughput in {time.perf_counter() - t:.1f} s on "
+              f"{tp['device']['name']} ({tp['device']['power_limit']}): episodes/s legacy "
+              f"{rates[0]:.3f}, " + ", ".join(
+                  f"{n} envs {v['episodes_per_s']:.3f} (first pass {v['first_pass_s']:.3f} s)"
+                  for n, v in tp["vectorized"].items()), flush=True)
+        check(all(np.isfinite(r) and r > 0 for r in rates),
+              f"bench: train_throughput rates {rates}")
+
+        t = time.perf_counter()
+        rows_line("runtime_throughput", runtime_throughput.run(quick=True, device="cuda"),
+                  phase="bench")
+        rt = {k: v for k, v in load("runtime_throughput").items() if k != "device"}
+        print(f"bench: runtime_throughput --quick in {time.perf_counter() - t:.1f} s: "
+              + ", ".join(f"{k} {v['served']}/{v['submitted']}" for k, v in rt.items()),
+              flush=True)
+        check(all(v["served"] == v["submitted"] > 0 for v in rt.values()),
+              "bench: runtime_throughput dropped requests")
+
+        rows_line("roofline", roofline.run(device="cuda", dryrun_dir=DRYRUN_OUT),
+                  phase="bench")
+        records = roofline.load_records(DRYRUN_OUT)
+        tab = roofline.table(dryrun_dir=DRYRUN_OUT)
+        oks = [x for x in tab if x["status"] == "OK"]
+        measured = [x for x in oks if x["measured_ms"] is not None]
+        print(f"bench: roofline over {len(records)} records: {len(oks)} OK rows, "
+              f"{len(measured)} measured", flush=True)
+        for line in roofline.markdown(dryrun_dir=DRYRUN_OUT).splitlines():
+            print(f"bench: {line}", flush=True)
+        check(len(oks) == sum(r["status"] == "OK" for r in records) > 0,
+              f"bench: roofline rows {len(oks)} for the OK records")
+        check(all(x["collective_s"] is None for x in oks), "bench: a collective term")
+    finally:
+        bench.set_results_dir(None)
+    print(f"bench: payloads under {BENCH_OUT}/", flush=True)
+    check(ops.launch_counts() == before,
+          f"bench: the bench phase launched attention kernels {ops.launch_counts()}")
+    return {"flash_attention": 0, "decode_attention": 0}
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="GPU smoke test of the PyTorch/CUDA port")
@@ -2397,19 +2480,22 @@ def run_all(smi: str):
     train_counts = timed("train", phase_train)
     figures_counts = timed("figures", phase_figures)
     dryrun_counts = timed("dryrun", phase_dryrun)
+    bench_counts = timed("bench", phase_bench)
 
     kernels = []
     for name in build.KERNELS:
         launches = (serve_counts[name] + decode_counts[name] + runtime_counts[name]
                     + opd_counts[name] + forecast_counts[name] + calibrate_counts[name]
                     + families_counts[name] + paper4_counts[name] + twin_counts[name]
-                    + train_counts[name] + figures_counts[name] + dryrun_counts[name])
+                    + train_counts[name] + figures_counts[name] + dryrun_counts[name]
+                    + bench_counts[name])
         print(f"launches {name}: serve {serve_counts[name]}, decode {decode_counts[name]}, "
               f"runtime {runtime_counts[name]}, opd {opd_counts[name]}, forecast "
               f"{forecast_counts[name]}, calibrate {calibrate_counts[name]}, families "
               f"{families_counts[name]}, paper4 {paper4_counts[name]}, twin "
               f"{twin_counts[name]}, train {train_counts[name]}, figures "
-              f"{figures_counts[name]}, dryrun {dryrun_counts[name]}", flush=True)
+              f"{figures_counts[name]}, dryrun {dryrun_counts[name]}, bench "
+              f"{bench_counts[name]}", flush=True)
         check(launches > 0, f"{name} never launched on the main path")
         row = summary[name]
         src, replaces = SOURCES[name]
@@ -2431,7 +2517,7 @@ def run_all(smi: str):
 PHASES = {"runtime": phase_runtime, "opd": phase_opd, "forecast": phase_forecast,
           "calibrate": phase_calibrate, "families": phase_families, "paper4": phase_paper4,
           "twin": phase_twin, "train": phase_train, "figures": phase_figures,
-          "dryrun": phase_dryrun}
+          "dryrun": phase_dryrun, "bench": phase_bench}
 
 
 if __name__ == "__main__":

@@ -6,17 +6,14 @@ imports ``torch`` and numpy, never ``jax`` and never ``repro``. Attention
 on a CUDA tensor runs through the hand-written Hopper kernels in
 ``repro_torch.kernels``; on a CPU tensor it takes their plain versions.
 
-Ported so far: the dense-family stage-serving data plane (``models``,
-``nn``, ``kernels``, ``serving.engine``/``serving.batcher``,
-``launch.serve``'s single-arch decode mode), and the control half without
-learning (``core.mdp``/``controller``/``expert``/``baselines``, ``cluster``,
-``serving.arrivals``/``telemetry``/``runtime``, ``api``, the launcher's
-``--pipeline`` mode), NumPy as in the reference, and the OPD agent
-(``core.features``/``policy``/``predictor``/``ppo``/``opd``, the vectorized
-analytic env ``core.vecenv``, ``nn.resnet``/``lstm``, ``train.optim``),
-which trains and decides on a torch device, measured stage execution and
-calibration (``timing``, ``cluster.executor``/``calibration``,
-``launch.calibrate``: decode steps captured in CUDA graphs, fitted into the
-perf model's ``(alpha, beta)``), and the audio and ssm families
-(``models.whisper``, ``models.xlstm_lm``, ``nn.xlstm``).
+Every module of the reference has its counterpart here, but for the jax
+version shim (``repro/compat.py``) and ``launch/hlo_cost.py``, whose job
+``launch/step_cost.py`` does over the eager program: the model zoo and its
+serving and training steps, the MDP and both envs, the OPD agent and its
+vectorized twins, forecasting and proactive control, the fleet, measured
+stage execution and calibration, placement and the dry run, the
+control-plane API, the paper's figures and the throughput benchmarks
+(``launch/*``, all run by ``launch/run.py``), and the static checks and
+runtime sanitizer of ``analysis``. What needs more than one card (the
+sequence- and expert-parallel paths, the collective term) is not ported.
 """

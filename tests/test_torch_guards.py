@@ -1,5 +1,5 @@
-"""Guards of the port's boundaries: it imports neither jax nor the JAX
-package, it never runs silently on the CPU when asked for CUDA, and the
+"""Guards of the port's boundaries: it (and the examples' twins) imports
+neither jax nor the JAX package nor its benchmarks, it never runs silently on the CPU when asked for CUDA, and the
 GPU smoke test refuses to report a result without a GPU."""
 import re
 import shutil
@@ -19,8 +19,10 @@ from repro_torch.models import api  # noqa: E402
 from repro_torch.serving import StageServer  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.MULTILINE)
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro|benchmarks)(\.|\s|$)",
+                       re.MULTILINE)
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
