@@ -128,6 +128,15 @@ Phases (any failure exits non-zero):
            = offered, prewarms > 0 for proactive_capacity; every OPD d_t
            below 1 s; no attention kernel launched; payloads under
            chiprun_out/figures_smoke/
+  mesh     the sharded serving program: granite-moe-3b-a800m at full width in
+           f32 on a (1, 2) mesh of two ranks sharing the card over gloo
+           (distributed.launch.run_on_mesh): StageExecutor(mesh=) decode, 8
+           steps at b = 4, and a 32-token api.forward prefill with shard_h,
+           logits within 1e-4 of the one-rank run (MoE plans replayed), each
+           rank's flash and decode launches > 0, per-rank weight GiB and the
+           slowest rank's step; an ep2d MoE layer at granite-moe's widths on
+           (2, 2) against one rank; the decode kernel's lse output (an empty
+           row gives 0 and -inf) against its plain version
   dryrun   launch/dryrun.py: every (arch, INPUT_SHAPES) step counted on fake
            tensors on the card's (1, 1) mesh (params, moments, cache and
            batch bytes through distributed.sharding's rules, flops, minimum
@@ -2342,6 +2351,107 @@ def phase_figures() -> dict:
     return {"flash_attention": 0, "decode_attention": 0}
 
 
+MESH_ARCH = "granite-moe-3b-a800m"
+MESH_TOL = 1e-4             # sharded against one rank, f32 (tests/test_torch_distributed.py)
+LSE_CASES = [(4, 24, 8, 64, 16, "prefix"), (4, 24, 8, 64, 16, "empty_row"),
+             (2, 8, 2, 64, 1024, "second_half"), (2, 8, 2, 64, 1024, "empty_row")]
+# the ep2d layer at granite-moe's widths: d 1536, d_ff 512, 40 experts (48
+# physical, nn.moe._phys_experts), top-8; x [B, S, d]
+EP2D = dict(seed=0, d=1536, f=512, E=40, shape=(4, 8, 1536), top_k=8)
+
+
+def lse_cases(timer) -> None:
+    """The decode kernel's log-sum-exp output against its plain version: a
+    rank's slice of granite-moe's decode cache (C = 16 of 32 slots) and a
+    split cache, each with a row of no valid slot (out 0, lse -inf) and a
+    row whose valid slots lie in another rank's slice; lse within 1e-5 of
+    max(1, |lse|), out within 1e-5 (f32) or two bf16 ulps."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for B, H, Hkv, D, C, kind in LSE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(gen, (B, 1, H, D), dtype)
+            k, v = (randn(gen, (B, C, Hkv, D), dtype) for _ in range(2))
+            idx = torch.arange(C, device="cuda")[None, :]
+            mask = (idx < C // 3 + torch.arange(B, device="cuda")[:, None]) if kind != \
+                "second_half" else (idx >= C // 2).expand(B, C)
+            mask = mask.contiguous()
+            if kind == "empty_row":
+                mask[1] = False
+            out, lse = da.decode_attention(q, k, v, mask, return_lse=True)
+            want, want_lse = ref.decode_attention_ref(q, k, v, mask, return_lse=True)
+            torch.cuda.synchronize()
+            empty = ~mask.any(1)
+            fin = ~empty
+            lse_err = ((lse[fin] - want_lse[fin]).abs()
+                       / want_lse[fin].abs().clamp(min=1.0)).max().item()
+            out_err = ((out.float() - want.float()).abs().max()
+                       / want.float().abs().max().clamp(min=1.0)).item()
+            tol = 1e-5 if dtype == torch.float32 else CALL_TOL[torch.bfloat16]
+            ms = timer.ms(lambda q=q, k=k, v=v, m=mask: da.decode_attention(
+                q, k, v, m, return_lse=True))
+            print(f"mesh: lse B{B} H{H} Hkv{Hkv} D{D} C{C} {kind} {str(dtype)[6:]}: lse err "
+                  f"{lse_err:.3e} (tol 1e-5), out err {out_err:.3e} (tol {tol:.3e}), "
+                  f"empty rows {int(empty.sum())}, {ms:.4f} ms", flush=True)
+            check(lse_err <= 1e-5 and out_err <= tol, f"mesh: lse case {kind} {dtype}")
+            check(bool(torch.isneginf(lse[empty]).all()) and bool((out[empty] == 0).all()),
+                  "mesh: an empty row is not out 0, lse -inf")
+            check(bool(torch.isfinite(lse[fin]).all()) and not bool(out.isnan().any()),
+                  "mesh: a NaN or -inf where a row has a slot")
+
+
+def phase_mesh() -> dict:
+    """The sharded serving program on the card: granite-moe-3b-a800m at full
+    width in f32 on a (1, 2) mesh of two ranks sharing the card (gloo):
+    StageExecutor(mesh=) decode steps at b = 4 (8 teacher-forced steps of
+    its serving step, C = 32) and one 32-token api.forward prefill with
+    shard_h, each rank's logits against the one-rank executor's within
+    MESH_TOL (MoE plans replayed), every rank's flash and decode launches
+    > 0, the slowest rank's step; one ep2d MoE layer at granite-moe's
+    widths on (2, 2) against the one-rank layer; the decode kernel's lse
+    output against its plain version (lse_cases). Ranks sharing one card
+    over gloo check correctness: their times are not multi-card speed."""
+    from repro_torch.cluster.executor import power_limit
+    from repro_torch.distributed import parity
+    from repro_torch.distributed.launch import backend_for, run_on_mesh
+
+    card = f"{torch.cuda.get_device_name(0)}, {power_limit()}"
+    lse_cases(Timer())
+    t = time.perf_counter()
+    ranks = run_on_mesh(parity.stage, (1, 2), device="cuda", args=(MESH_ARCH,), timeout=300)
+    wall = time.perf_counter() - t
+    errs = ranks[0]["errs"]
+    for r in ranks:
+        print(f"mesh: {MESH_ARCH} rank {r['rank']} of (1, 2) on {r['device']} ({card}) over "
+              f"{r['backend']}: {r['weight_gib']:.3f} GiB of weights (f32), step "
+              f"{r['step_ms']:.3f} ms at b4 (slowest rank, eager), launches {r['launches']} "
+              f"(decode steps: {r['decode_launches']}), label {r['device_class']}, key mesh "
+              f"{r['cache_key_mesh']}", flush=True)
+        check(r["launches"]["flash_attention"] > 0 and r["launches"]["decode_attention"] > 0,
+              f"mesh: rank {r['rank']} launched {r['launches']}")
+        check(r["finite"], f"mesh: rank {r['rank']} non-finite logits")
+    print(f"mesh: {MESH_ARCH} sharded vs one rank (rel to max(1, max |logits|)): {errs}; "
+          f"backend {backend_for('cuda', 2)}, {len(ranks)} ranks, launch wall {wall:.1f} s",
+          flush=True)
+    check(max(errs.values()) <= MESH_TOL, f"mesh: sharded vs one rank {errs}")
+
+    spec = dict(EP2D)
+    top_k = spec.pop("top_k")
+    t = time.perf_counter()
+    got = run_on_mesh(parity.moe_layer, (2, 2), device="cuda", args=(spec, top_k, True),
+                      timeout=300)[0]
+    y_err = parity.rel_err(torch.from_numpy(got["y"]), torch.from_numpy(got["y_one"]))
+    lb_err = abs(got["lb_loss"] - got["lb_loss_one"])
+    print(f"mesh: ep2d MoE layer {EP2D} on (2, 2), 4 ranks ({card}): y err {y_err:.3e}, lb_loss "
+          f"{got['lb_loss']:.6f} vs {got['lb_loss_one']:.6f}, dropped "
+          f"{got['dropped_frac']:.4f}; {time.perf_counter() - t:.1f} s", flush=True)
+    check(y_err <= MESH_TOL and lb_err <= MESH_TOL, "mesh: ep2d vs one rank")
+    return {k: sum(r["launches"][k] for r in ranks) for k in ("flash_attention",
+                                                              "decode_attention")}
+
+
 BENCH_OUT = "chiprun_out/bench_smoke"
 BENCH_ENVS = (1, 32)        # train_throughput's num_envs points (full: 1, 8, 32)
 BENCH_SECONDS = 300         # train_throughput's episode: 30 decisions (full: 1200 s)
@@ -2479,6 +2589,7 @@ def run_all(smi: str):
     twin_counts = timed("twin", phase_twin)
     train_counts = timed("train", phase_train)
     figures_counts = timed("figures", phase_figures)
+    mesh_counts = timed("mesh", phase_mesh)
     dryrun_counts = timed("dryrun", phase_dryrun)
     bench_counts = timed("bench", phase_bench)
 
@@ -2487,14 +2598,15 @@ def run_all(smi: str):
         launches = (serve_counts[name] + decode_counts[name] + runtime_counts[name]
                     + opd_counts[name] + forecast_counts[name] + calibrate_counts[name]
                     + families_counts[name] + paper4_counts[name] + twin_counts[name]
-                    + train_counts[name] + figures_counts[name] + dryrun_counts[name]
-                    + bench_counts[name])
+                    + train_counts[name] + figures_counts[name] + mesh_counts[name]
+                    + dryrun_counts[name] + bench_counts[name])
         print(f"launches {name}: serve {serve_counts[name]}, decode {decode_counts[name]}, "
               f"runtime {runtime_counts[name]}, opd {opd_counts[name]}, forecast "
               f"{forecast_counts[name]}, calibrate {calibrate_counts[name]}, families "
               f"{families_counts[name]}, paper4 {paper4_counts[name]}, twin "
               f"{twin_counts[name]}, train {train_counts[name]}, figures "
-              f"{figures_counts[name]}, dryrun {dryrun_counts[name]}, bench "
+              f"{figures_counts[name]}, mesh {mesh_counts[name]}, dryrun "
+              f"{dryrun_counts[name]}, bench "
               f"{bench_counts[name]}", flush=True)
         check(launches > 0, f"{name} never launched on the main path")
         row = summary[name]
@@ -2517,7 +2629,7 @@ def run_all(smi: str):
 PHASES = {"runtime": phase_runtime, "opd": phase_opd, "forecast": phase_forecast,
           "calibrate": phase_calibrate, "families": phase_families, "paper4": phase_paper4,
           "twin": phase_twin, "train": phase_train, "figures": phase_figures,
-          "dryrun": phase_dryrun, "bench": phase_bench}
+          "mesh": phase_mesh, "dryrun": phase_dryrun, "bench": phase_bench}
 
 
 if __name__ == "__main__":

@@ -28,6 +28,18 @@ plus 4·B·H·C·D per decode-kernel call), bytes the minimum a decode step
 moves (``step_cost.step_bytes``).
 ``cluster/calibration.py`` fits the measured ``latency(b)`` curves back
 into per-variant ``(alpha, beta)``.
+
+On a mesh of running ranks (``mesh=``, the reference's ``default_mesh``
+serving tensor-parallel; ``distributed.launch.run_on_mesh`` starts the
+ranks and every rank builds its own ``StageExecutor``), each rank inits
+the whole model from the same seed, quantises it as on one card (so a
+leaf's scale is the whole leaf's) and keeps its blocks under the rules
+(``distributed.sharding.place``, decode kind); cache and batch are placed
+likewise, and the step runs the sharded program. A step whose collectives
+go through gloo copies through the host and cannot be captured in a CUDA
+graph, so a mesh entry has ``graph=None`` and is timed eager; the step's
+latency is the slowest rank's. The mesh enters the cache key and the
+calibration label (``device_class``, e.g. ``cuda2``), as the reference's.
 """
 from __future__ import annotations
 
@@ -40,6 +52,8 @@ import torch
 
 from repro_torch.configs import ARCHS
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.launch import step_cost
 from repro_torch.models import api, steps
@@ -47,12 +61,14 @@ from repro_torch.models.config import ArchConfig, InputShape
 from repro_torch.timing import time_fn
 
 QUANT_BITS = {"int8": 8, "int4": 4}
+CASTS = {"bf16": torch.bfloat16, "f32": torch.float32}
 CAPTURE_WARMUP = 2                    # eager steps on a side stream before capture
 
 
 def quantize_params(model: torch.nn.Module, quant: str) -> torch.nn.Module:
     """The serving quantisation axis, executably, in place on ``model``:
-    ``bf16`` casts every floating parameter to bfloat16; ``int8``/``int4``
+    ``bf16`` casts every floating parameter to bfloat16 (``f32`` to
+    float32: unquantised weights, for checks at f32 tolerances); ``int8``/``int4``
     symmetric-fake-quantise each reference leaf to 2^bits levels with one
     max-abs scale and store it in bfloat16 (the measured backend has no
     integer matmul kernels, and the calibration records that truthfully).
@@ -63,8 +79,8 @@ def quantize_params(model: torch.nn.Module, quant: str) -> torch.nn.Module:
     ``mamba_layers`` [G, attn_every, ...]), one leaf holds a parameter of
     every layer, so its layers share one scale here too. A MoE's stacked
     experts are one parameter, hence one scale, as in the reference."""
-    if quant != "bf16" and quant not in QUANT_BITS:
-        raise ValueError(f"unknown quant {quant!r}; one of bf16, "
+    if quant not in CASTS and quant not in QUANT_BITS:
+        raise ValueError(f"unknown quant {quant!r}; one of {', '.join(CASTS)}, "
                          f"{', '.join(QUANT_BITS)}")
     leaves: dict[str, list] = {}
     stacked = getattr(model, "stacked_layers", {})
@@ -77,9 +93,9 @@ def quantize_params(model: torch.nn.Module, quant: str) -> torch.nn.Module:
             leaves.setdefault(name, []).append(p)
     with torch.no_grad():
         for params in leaves.values():
-            if quant == "bf16":
+            if quant in CASTS:
                 for p in params:
-                    p.data = p.data.to(torch.bfloat16)
+                    p.data = p.data.to(CASTS[quant])
                 continue
             qmax = float(2 ** (QUANT_BITS[quant] - 1) - 1)
             scale = torch.max(torch.stack([torch.max(torch.abs(p)) for p in params])) / qmax
@@ -98,6 +114,7 @@ class ExecKey:
     quant: str
     device: str
     seq_len: int
+    mesh: tuple = (("data", 1), ("model", 1))
 
 
 @dataclass
@@ -113,8 +130,13 @@ class _Entry:
     launches: dict = field(default_factory=dict)   # kernel launches per captured step
     replays: int = 0
     cost: dict | None = None      # flops / bytes, computed lazily
+    mesh: object = None           # the rank's mesh of a sharded step
+    axes: dict = field(default_factory=dict)   # collectives.use_mesh keywords
 
     def eager(self):
+        if self.mesh is not None:
+            with torch.inference_mode(), col.use_mesh(self.mesh, **self.axes):
+                return self.step(self.model, self.batch, self.cache)
         with torch.inference_mode():
             return self.step(self.model, self.batch, self.cache)
 
@@ -185,10 +207,16 @@ class StageExecutor:
     """Executes model-zoo serving steps on one torch device and measures
     them. ``device`` defaults to ``"cuda"``; ``smoke=True`` runs each
     architecture's reduced same-family variant (``ArchConfig.smoke``), as
-    the CPU tests do. ``cache`` may be shared between executors."""
+    the CPU tests do. ``cache`` may be shared between executors. ``mesh``
+    (a running mesh of ranks, ``launch.mesh.make_device_mesh``) serves
+    tensor-parallel over it on the mesh's device (module docstring);
+    ``None``, or a mesh of one, is the one card."""
 
     def __init__(self, device="cuda", *, seq_len: int = 32, smoke: bool = False,
-                 seed: int = 0, cache: ExecutableCache | None = None):
+                 seed: int = 0, cache: ExecutableCache | None = None, mesh=None):
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            device = self.mesh.device
         self.device = resolve_device(device)
         self.seq_len = seq_len
         self.smoke = smoke
@@ -202,9 +230,14 @@ class StageExecutor:
     @property
     def device_class(self) -> str:
         """Label for calibration tables: device type + device count (e.g.
-        ``cuda1``) — map it onto ``NodeSpec.device_class`` names via
-        ``calibration.apply_to_cluster``."""
-        return f"{self.device.type}1"
+        ``cuda1``, ``cuda2`` on a mesh of two ranks) — map it onto
+        ``NodeSpec.device_class`` names via ``calibration.apply_to_cluster``."""
+        return f"{self.device.type}{self.mesh.size if self.mesh else 1}"
+
+    def mesh_key(self) -> tuple[tuple[str, int], ...]:
+        if self.mesh is None:
+            return (("data", 1), ("model", 1))
+        return tuple(self.mesh.shape.items())
 
     def device_meta(self) -> dict:
         """The device's name (and a card's power limit) for a table's meta."""
@@ -215,7 +248,7 @@ class StageExecutor:
 
     def key_for(self, arch: str, batch: int, quant: str = "bf16") -> ExecKey:
         return ExecKey(arch=arch, batch=int(batch), quant=quant,
-                       device=str(self.device), seq_len=self.seq_len)
+                       device=str(self.device), seq_len=self.seq_len, mesh=self.mesh_key())
 
     # ------------------------------------------------------------- builds --
 
@@ -224,12 +257,16 @@ class StageExecutor:
         return cfg.smoke() if self.smoke else cfg
 
     def params_for(self, arch: str, quant: str = "bf16"):
-        """Init once and quantise (cached: the weights are batch-independent)."""
+        """Init once, quantise and, on a mesh, keep the rank's blocks
+        (cached: the weights are batch-independent)."""
         pkey = (arch, quant)
         if pkey not in self._params:
             cfg = self.arch_config(arch)
-            model = api.init_model(self.seed + len(self._params), cfg, device=self.device)
-            self._params[pkey] = quantize_params(model, quant)
+            model = quantize_params(
+                api.init_model(self.seed + len(self._params), cfg, device=self.device), quant)
+            if self.mesh is not None:
+                model, _, _ = shd.place(model, self.mesh, cfg=cfg, kind="decode")
+            self._params[pkey] = model
         return self._params[pkey]
 
     def _inputs(self, cfg: ArchConfig, shape: InputShape):
@@ -240,6 +277,10 @@ class StageExecutor:
                                device=self.device, dtype=torch.int64)
         ctx = steps.cache_context(cfg, shape)
         cache = api.init_cache(cfg, shape.global_batch, max(ctx, 1), device=self.device)
+        if self.mesh is not None:
+            _, cache, batch = shd.place(None, self.mesh, cfg=cfg, kind="decode",
+                                        cache=cache, batch={"tokens": tokens})
+            return batch, cache
         return {"tokens": tokens}, cache
 
     def _capture(self, entry: _Entry, arch: str):
@@ -275,7 +316,14 @@ class StageExecutor:
             batch_in, cache_in = self._inputs(cfg, shape)
             entry = _Entry(cfg=cfg, model=model, step=steps.make_serve_step(cfg, shape),
                            batch=batch_in, cache=cache_in, compile_s=0.0)
-            if self.device.type == "cuda":
+            if self.mesh is not None:         # eager: gloo collectives are not captured
+                entry.mesh = self.mesh
+                entry.axes = shd.program_axes(cfg, shape, self.mesh)
+                before = ops.launch_counts()
+                entry.eager()
+                after = ops.launch_counts()
+                entry.launches = {k: after[k] - before[k] for k in after}
+            elif self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
                 t0 = time.perf_counter()
                 self._capture(entry, arch)
@@ -301,19 +349,26 @@ class StageExecutor:
                 warmup: int = 1) -> StageTiming:
         """Min-of-``reps`` measured step latency for one configuration: the
         graph replay on a CUDA device (the eager step beside it), the eager
-        step on the CPU. Capture happens outside the timed region (cached);
-        each timed pass synchronises the device inside the clock."""
+        step on the CPU and on a mesh, where it is the slowest rank's.
+        Capture happens outside the timed region (cached); each timed pass
+        synchronises the device inside the clock."""
         entry, was_hit = self.compiled_step(arch, batch, quant)
         replays0 = entry.replays
         eager = time_fn(entry.eager, reps=reps, warmup=warmup, device=self.device)
         latency = (time_fn(entry.replay, reps=reps, warmup=warmup, device=self.device)
-                   if entry.graph is not None else eager)
+                   if entry.graph is not None else eager).best
         cost = self.cost(entry)
+        if self.mesh is not None:
+            with col.use_mesh(self.mesh):
+                latency = float(col.pmax(torch.tensor([latency], dtype=torch.float64,
+                                                      device=self.device),
+                                         self.mesh.axis_names)[0])
         return StageTiming(
             arch=arch, batch=int(batch), quant=quant, backend="reference",
-            device_class=self.device_class, latency_s=latency.best,
+            device_class=self.device_class, latency_s=latency,
             compile_s=0.0 if was_hit else entry.compile_s, cache_hit=was_hit,
-            flops=cost["flops"], bytes=cost["bytes"], eager_latency_s=eager.best,
+            flops=cost["flops"], bytes=cost["bytes"],
+            eager_latency_s=latency if self.mesh is not None else eager.best,
             launches=dict(entry.launches), replays=entry.replays - replays0)
 
     def measure_curve(self, arch: str, batches, quant: str = "bf16", *, reps: int = 5,

@@ -1,6 +1,6 @@
-"""Placement rules of the port (``sharding``): the reference's partition
-entries as data, and whole placement on the one card's (1, 1) mesh."""
-from repro_torch.distributed.sharding import (
-    dp_axes, param_shardings, opt_shardings, batch_shardings, cache_shardings,
-    replicated, shard_bytes, place,
-)
+"""The port's distribution: placement rules (``sharding``: the reference's
+partition entries as data, blocks placed per rank), the sharded program's
+collectives (``collectives``), its rank launcher (``launch``) and the rank
+programs that hold it against one rank (``parity``). The layers import
+``collectives`` and ``sharding`` imports the models, so this package
+imports none of its modules itself."""

@@ -21,12 +21,14 @@ are the reference's, on the reference's layer-local paths:
   * AdamW moments (ZeRO-1): the param's entries plus the data axis on the
     first still-whole dim that divides it
 
-On one H100 the mesh is (1, 1) (``launch.mesh.make_device_mesh``): every
+On one card the mesh is (1, 1) (``launch.mesh.make_device_mesh``): every
 entry then keeps a tensor whole, and ``place`` puts params, cache and batch
-on the card. ``shard_bytes`` gives a tensor's bytes per device under any
-mesh, which is what the dry run counts. Running a sharded program (the
-reference's sequence-parallel ``residual_constraint`` and the MoE's
-expert-parallel ``shard_map``) needs more than one card and is not ported.
+on the card. On a mesh of running ranks (``distributed.launch``) ``place``
+keeps in each rank exactly its block of every tensor (``local_block``), so
+the bytes ``shard_bytes`` gives per device, which the dry run counts, are
+the bytes a running rank holds; the layers then run the sharded program
+over those blocks (``distributed.collectives``). ``residual_constraint``
+is the reference's sequence-parallel residual stream (``shard_h``).
 """
 from __future__ import annotations
 
@@ -334,13 +336,109 @@ def _to(tree, device):
     return tree
 
 
-def place(model: torch.nn.Module, mesh, *, cache=None, batch=None):
-    """Put ``model`` (in place), ``cache`` and ``batch`` on the mesh's
-    device -> (model, cache, batch). Only a mesh of one device is placed:
-    every entry of its rules keeps a tensor whole. A larger mesh needs
-    more than one card and raises."""
-    if mesh.size != 1:
-        raise ValueError(f"placing on a {mesh.sizes} mesh needs {mesh.size} devices; the "
-                         f"port places on one card, the (1, 1) mesh")
+def batch_axes(global_batch: int, mesh, *, multi_pod: bool = False) -> tuple[str, ...]:
+    """The axes a batch of ``global_batch`` rows is split over on ``mesh``
+    (the ``_bdim`` rule): the data axes when they divide it, else none."""
+    entry = _bdim(InputShape("b", 1, global_batch, "decode"), mesh, multi_pod)
+    return _axes(entry)
+
+
+def program_axes(cfg: ArchConfig, shape: InputShape, mesh, *,
+                 multi_pod: bool = False) -> dict:
+    """``collectives.use_mesh``'s keywords for a step of ``shape`` placed by
+    these rules: the axes its batch rows and its decode cache length are
+    split over."""
+    C = max(cache_context(cfg, shape), 1)
+    split = cfg.family in SHARDED_FAMILIES and C % mesh.shape["model"] == 0
+    return {"batch_axes": batch_axes(shape.global_batch, mesh, multi_pod=multi_pod),
+            "cache_axes": ("model",) if split and mesh.shape["model"] > 1 else ()}
+
+
+def local_block(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` on a running ``mesh``, as
+    a tensor of its own (the whole tensor can then be freed). A tuple entry
+    splits its dim over its axes row-major, as a ``PartitionSpec`` does."""
+    out = t
+    for dim, entry in enumerate(spec):
+        axes = _axes(entry)
+        if not axes:
+            continue
+        n = mesh.span(axes)
+        if out.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not divide over {axes}")
+        size = out.shape[dim] // n
+        out = out.narrow(dim, mesh.index(axes) * size, size)
+    return out.contiguous() if out is t else out.clone(memory_format=torch.contiguous_format)
+
+
+def _blocks(tree, specs, mesh, device):
+    if isinstance(tree, dict):
+        return {k: _blocks(v, specs[k], mesh, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_blocks(v, s, mesh, device)
+                          for v, s in zip(tree, specs, strict=True))
+    return local_block(tree, specs, mesh).to(device)
+
+
+SHARDED_FAMILIES = ("dense", "moe")
+
+
+def place(model: torch.nn.Module | None, mesh, *, cfg: ArchConfig | None = None,
+          kind: str = "decode", cache=None, batch=None, multi_pod: bool = False):
+    """Put ``model`` (in place; may be None), ``cache`` and ``batch`` on
+    ``mesh`` -> (model, cache, batch). On a (1, 1) mesh every entry keeps a tensor
+    whole: all three move to the mesh's device. On a mesh of running ranks
+    each parameter (by ``param_shardings`` of ``kind``), cache tensor
+    (``cache_shardings``) and batch tensor (the batch rule) is replaced by
+    this rank's block, the batch's rows split as ``batch_axes`` says; the
+    tensors given must be whole. ``cfg`` is then required; its family must
+    have a sharded program (``SHARDED_FAMILIES``). An abstract mesh of more
+    than one device places nothing and raises."""
+    if mesh.size == 1:
+        dev = resolve_device(mesh.device)
+        return (None if model is None else model.to(dev)), _to(cache, dev), _to(batch, dev)
+    if not getattr(mesh, "running", False):
+        raise ValueError(f"placing on a {mesh.sizes} mesh needs {mesh.size} running ranks "
+                         "(distributed.launch.run_on_mesh); one card is the (1, 1) mesh")
     dev = resolve_device(mesh.device)
-    return model.to(dev), _to(cache, dev), _to(batch, dev)
+    if cfg is None or cfg.family not in SHARDED_FAMILIES:
+        raise ValueError(f"the sharded program covers the {SHARDED_FAMILIES} families, "
+                         f"not {getattr(cfg, 'family', None)!r}")
+    if model is not None:
+        params = dict(model.named_parameters())
+        specs = param_shardings(cfg, mesh, multi_pod=multi_pod, kind=kind, params=params)
+        with torch.no_grad():
+            for name, p in params.items():
+                p.data = local_block(p.data, specs[name], mesh).to(dev)
+    if cache is not None:
+        B = cache["pos"].shape[0]
+        shape = InputShape("placed", cache["k"].shape[2], B, "decode")
+        cache = _blocks(cache, cache_shardings(cfg, shape, mesh, multi_pod=multi_pod,
+                                               cache=cache), mesh, dev)
+    if batch is not None:
+        rows = _entry(batch_axes(next(iter(batch.values())).shape[0], mesh,
+                                 multi_pod=multi_pod) or (None,))
+        batch = {k: local_block(v, (rows,) + (None,) * (v.dim() - 1), mesh).to(dev)
+                 for k, v in batch.items()}
+    return model, cache, batch
+
+
+def residual_constraint(cfg: ArchConfig, shape: InputShape, mesh, *,
+                        multi_pod: bool = False):
+    """shard_h callback: sequence-parallel residual stream between layers
+    (the reference's ``residual_constraint``). Called on a rank's residual
+    ``h`` [B, S, d], it keeps the rank's block of S over "model" when
+    ``shape.seq_len`` and S divide by the model axis, and ``h`` whole
+    otherwise; the batch rows are already the rank's (``place``). The next
+    layer, which needs the whole sequence, gathers it. Off a running mesh
+    it is the identity."""
+    from repro_torch.distributed import collectives
+    M = mesh.shape["model"]
+    split = shape.seq_len % M == 0
+
+    def shard_h(h: torch.Tensor) -> torch.Tensor:
+        if not split or h.dim() != 3 or h.shape[1] % M or collectives.current_mesh() is None:
+            return h
+        return collectives.block(h, "model", 1)
+
+    return shard_h

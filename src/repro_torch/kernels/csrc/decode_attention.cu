@@ -7,6 +7,11 @@
 // 1/sqrt(D) applied to q; masked slots get -FLT_MAX (finfo(f32).min), so a
 // row with no valid slot yields the mean of V as the reference's softmax over
 // equal logits does; a zero denominator becomes 1; output in q's dtype.
+// Optionally (a non-null `lse`) it also writes each (b, head)'s log-sum-exp
+// of the scaled logits over the valid slots, f32 [B, H]: what a caller needs
+// to merge attention over disjoint slices of one cache (ranks that each hold
+// C/M slots). In that mode a row with no valid slot reads no tile and gives
+// out = 0, lse = -inf, which merge with zero weight.
 //
 // What bounds it on the H100: bytes. Each (b, kv head) reads its valid
 // slots' k and v once and does 4*g*D FLOPs per slot, about g/2 FLOP per byte
@@ -28,8 +33,9 @@
 //   any is used, so the set-up costs one trip to device memory. When the row
 //   has a valid slot, a tile whose mask is all false is skipped: its weight
 //   exp(-FLT_MAX - m) is exactly 0 in the reference. A row with no valid slot
-//   does the full work, as the reference does, and gives the mean of V. Any
-//   mask is taken, not only a prefix (ring caches).
+//   does the full work, as the reference does, and gives the mean of V (with
+//   `lse`: reads nothing, gives 0). Any mask is taken, not only a prefix
+//   (ring caches).
 // - The kept tiles stream through a 2-stage cp.async ring in shared memory,
 //   16 bytes per copy (one slot's row of one kv head is D contiguous
 //   elements): the copy of tile t+1 overlaps the arithmetic on tile t, and
@@ -113,6 +119,7 @@ struct Args {
   const void* v;
   const uint8_t* mask;
   void* o;
+  float* lse;   // [B, H] f32, or null
   int C, H, Hkv, g, chunk;
   float scale;
 };
@@ -267,7 +274,7 @@ decode_split_kernel(const Args a) {
     int cnt = 0;
     for (int j0 = 0; j0 < n_tiles; j0 += 32) {
       const int j = j0 + lane;
-      const bool keep = j < n_tiles && (!row_any || bits_s[j] != 0u);
+      const bool keep = j < n_tiles && ((!row_any && a.lse == nullptr) || bits_s[j] != 0u);
       const unsigned bal = __ballot_sync(FULL, keep);
       if (keep) list_s[cnt + __popc(bal & ((1u << lane) - 1u))] = (uint16_t)j;
       cnt += __popc(bal);
@@ -410,6 +417,8 @@ decode_split_kernel(const Args a) {
     }
     const float den = lsum == 0.f ? 1.f : lsum;
     store4(ob + u * 4, scale4(o, 1.f / den));
+    if (a.lse != nullptr && u % K::DG == 0)
+      a.lse[(size_t)b * a.H + (size_t)hk * a.g + r0 + r] = lsum == 0.f ? -INFINITY : M + logf(lsum);
   }
   cluster.sync();   // peers' shared memory stays until every CTA has read it
 }
@@ -458,13 +467,14 @@ cudaError_t launch_d(const Args& a, int B, int D, int n_splits, cudaStream_t str
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; mask is one byte per slot (torch.bool).
+// dtype: 0 = float32, 1 = bfloat16; mask is one byte per slot (torch.bool);
+// lse is null or a float32 [B, H] output (see the header).
 // D is 64, 80 or 128; H/Hkv <= 16. The plan (n_splits <= 16, chunk <= 16384)
 // covers [0, C): (n_splits - 1) * chunk < C <= n_splits * chunk. q, k, v and
 // o are 16-byte aligned. Returns the CUDA error code of the launch (0 on
 // success). Asynchronous on `stream`.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
-                                    const void* mask, void* o, int B, int C, int H,
+                                    const void* mask, void* o, void* lse, int B, int C, int H,
                                     int Hkv, int D, int dtype, int n_splits, int chunk,
                                     void* stream) {
   if (B <= 0 || C <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAX_G ||
@@ -472,8 +482,8 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
       chunk > MAX_CHUNK || (long long)(n_splits - 1) * chunk >= C ||
       (long long)n_splits * chunk < C)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, static_cast<const uint8_t*>(mask), o, C, H, Hkv, H / Hkv, chunk,
-               1.0f / sqrtf((float)D)};
+  const Args a{q, k, v, static_cast<const uint8_t*>(mask), o, static_cast<float*>(lse), C, H,
+               Hkv, H / Hkv, chunk, 1.0f / sqrtf((float)D)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == 0 ? launch_d<float>(a, B, D, n_splits, st)
                                      : launch_d<__nv_bfloat16>(a, B, D, n_splits, st);

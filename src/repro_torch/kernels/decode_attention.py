@@ -16,7 +16,10 @@ thread-block cluster of n_splits CTAs per (b, kv head, row group). Each CTA
 keeps its partial softmax state (m, l, acc) in f32 in its own shared
 memory, and the cluster merges the partials through distributed shared
 memory in the same launch: no scratch tensor and no counters in device
-memory.
+memory. With ``return_lse`` the kernel also writes each (b, head)'s
+log-sum-exp of the scaled logits over the valid slots (f32 [B, H]), and a
+row with no valid slot gives out = 0 and lse = -inf: the sharded decode
+merges the ranks' slices of one cache with it.
 """
 from __future__ import annotations
 
@@ -74,7 +77,7 @@ def row_groups(H: int, Hkv: int) -> int:
 def _lib():
     lib = build.load("decode_attention")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.decode_attention_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+    lib.decode_attention_fwd.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
     lib.decode_attention_fwd.restype = I
     return lib
 
@@ -128,19 +131,22 @@ def _check_inputs(q, k, v, valid_mask):
     return B, C, H, Hkv, D
 
 
-def decode_attention(q, k, v, valid_mask):
+def decode_attention(q, k, v, valid_mask, *, return_lse: bool = False):
     """q [B, 1, H, D]; k, v [B, C, Hkv, D]; valid_mask [B, C] bool (CUDA)
-    -> [B, 1, H, D]."""
+    -> out [B, 1, H, D], or (out, lse [B, H] f32) with ``return_lse``."""
     global launches
     B, C, H, Hkv, D = _check_inputs(q, k, v, valid_mask)
     n_splits, chunk = plan_splits(B, Hkv, C, sm_count(q.device.index), row_groups(H, Hkv))
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse
+           else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib().decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_mask.data_ptr(),
-            out.data_ptr(), B, C, H, Hkv, D, _DTYPE_CODES[q.dtype], n_splits, chunk, stream)
+            out.data_ptr(), None if lse is None else lse.data_ptr(), B, C, H, Hkv, D,
+            _DTYPE_CODES[q.dtype], n_splits, chunk, stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -29,8 +29,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
-def decode_attention(q, k, v, valid_mask):
-    """q [B, 1, H, D]; k, v [B, C, Hkv, D]; valid_mask [B, C] -> [B, 1, H, D].
+def decode_attention(q, k, v, valid_mask, *, return_lse: bool = False):
+    """q [B, 1, H, D]; k, v [B, C, Hkv, D]; valid_mask [B, C] -> [B, 1, H, D],
+    or (out, lse [B, H] f32) with ``return_lse`` (``ref.decode_attention_ref``
+    says what a row with no valid slot gives then).
 
     q in bf16 over an f32 cache is what a step with bf16 weights hands over
     (the cache stays in the config's dtype, as the reference builds it): q is
@@ -44,9 +46,11 @@ def decode_attention(q, k, v, valid_mask):
                              f"over f32 k/v, got q {q.dtype}, k {k.dtype}, v {v.dtype}")
         q = q.to(torch.float32)
     if _on_cuda(q):
-        out = _da.decode_attention(q, k, v, valid_mask)
+        out = _da.decode_attention(q, k, v, valid_mask, return_lse=return_lse)
     else:
-        out = ref.decode_attention_ref(q, k, v, valid_mask)
+        out = ref.decode_attention_ref(q, k, v, valid_mask, return_lse=return_lse)
+    if return_lse:
+        return out[0].to(out_dtype), out[1]
     return out.to(out_dtype)
 
 

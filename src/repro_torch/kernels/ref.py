@@ -27,15 +27,22 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int | None = No
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
-def decode_attention_ref(q, k, v, valid_mask):
-    """q [B, 1, H, D]; k, v [B, C, Hkv, D]; valid_mask [B, C] -> [B, 1, H, D]."""
+def decode_attention_ref(q, k, v, valid_mask, *, return_lse: bool = False):
+    """q [B, 1, H, D]; k, v [B, C, Hkv, D]; valid_mask [B, C] -> [B, 1, H, D]
+    (a row with no valid slot: the mean of V). With ``return_lse`` ->
+    (out, lse [B, H] f32): the log-sum-exp of the scaled logits over the
+    valid slots, and a row with no valid slot gives out = 0, lse = -inf."""
     B, _, H, D = q.shape
     Hkv = k.shape[2]
     g = H // Hkv
     qg = q.reshape(B, 1, Hkv, g, D).to(torch.float32)
     logits = torch.einsum("bshgd,bthd->bhgst", qg, k.to(torch.float32)) / (D ** 0.5)
     mask = valid_mask[:, None, None, None, :]
-    logits = logits.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgst,bthd->bshgd", probs, v.to(torch.float32))
-    return out.reshape(B, 1, H, D).to(q.dtype)
+    probs = torch.softmax(logits.masked_fill(~mask, NEG_INF), dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v.to(torch.float32)).reshape(B, 1, H, D)
+    if not return_lse:
+        return out.to(q.dtype)
+    lse = torch.logsumexp(logits.masked_fill(~mask, -torch.inf), dim=-1).reshape(B, H)
+    empty = ~valid_mask.any(dim=1)
+    out = out.masked_fill(empty[:, None, None, None], 0.0)
+    return out.to(q.dtype), lse

@@ -1,9 +1,11 @@
 """Dry run: count every (architecture x input shape) on one H100, and run
-the ones that fit (the counterpart of ``repro/launch/dryrun.py``).
+the ones that fit; or count it per device on the production meshes (the
+counterpart of ``repro/launch/dryrun.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape decode_32k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--measure 3] [--out D]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu --smoke --measure 1
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes [--multi-pod]
 
 The reference lowers and compiles each step on a 16 x 16 TPU v5e pod of
 placeholder devices and reads XLA's memory and cost analyses. Here each
@@ -24,7 +26,23 @@ draw), on the card's (1, 1) mesh, and counted:
     dense, 3.35 TB/s, 80 GB; NVIDIA's SXM data sheet). One card has no
     collective term, and the record says so.
 
-A record is ``OK`` when its counted peak fits the card's 80 GB,
+``--both-meshes`` counts on 16 x 16 ("data", "model") and 2 x 16 x 16
+("pod", "data", "model") H100s instead (``--multi-pod``: the latter
+alone), the reference's production meshes. For the decoder families' (dense
+and moe) prefill and decode records, rank 0's sharded program runs on fake
+tensors under a fake process group of the mesh's size
+(``torch.testing._internal.distributed.fake_pg``): every parameter, cache
+and batch tensor is placed as the rules place it (``sharding.place``), the
+prefill carries the sequence-parallel ``shard_h``, and the counters above
+count per device, with the bytes each collective moves
+(``distributed.collectives.counting``). ``collective_s`` sums, over the
+groups the program reduces in, their bytes over the bandwidth of the
+slowest link the group spans (``LINKS``: ranks are numbered row-major with
+"model" innermost, ``NODE`` cards to an HGX node). The other families'
+records and ``train_4k`` carry the rules' resident bytes per device and
+say why their collective term is not there yet (``RULES_ONLY``).
+
+A record is ``OK`` when its counted peak fits a card's 80 GB,
 ``DOES_NOT_FIT`` (with the counted bytes) when it does not, or ``SKIP``
 (the reference's ``SKIPS``). ``--measure K`` then runs up to K records that
 fit, decode shapes first, on the device for real: random bf16 weights from
@@ -33,11 +51,12 @@ seed 0, one warm-up step, the min of ``REPS`` synchronised steps,
 of the bound. A decode cache holds its whole context (every slot valid), as
 the reference's ``cache_specs``. ``--device cpu --smoke`` counts and runs
 the reduced configs on the host (times are then host times; no peak is
-measured). Records go to ``<out>/<arch>_<shape>_1x1.json``.
+measured). Records go to ``<out>/<arch>_<shape>_<mesh>.json``.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import multiprocessing
 import os
@@ -49,9 +68,10 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs import ARCHS
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import step_cost
-from repro_torch.launch.mesh import make_device_mesh
+from repro_torch.launch.mesh import AXES, POD_AXES, make_device_mesh, make_mesh
 from repro_torch.models import api, steps
 from repro_torch.models.config import INPUT_SHAPES, InputShape
 from repro_torch.train import adamw_init
@@ -63,6 +83,11 @@ HBM_BYTES = 80e9        # the card's memory, H100 SXM data sheet
 DEVICE = "H100 SXM (1 card)"
 REPS = 5                # synchronised steps of a measured record, after one warm-up
 COUNT_WORKERS = 8       # counting processes at most (each holds its own torch)
+PRODUCTION_MESHES = ("16x16", "2x16x16")     # the reference's, by name
+NODE = 8                # cards of one HGX H100 node, joined by NVLink
+# bytes/s a direction per card on the slowest link a group spans (data sheets)
+LINKS = {"nvlink": ("NVLink 4 within an 8-card HGX H100 node, 450 GB/s a direction", 450e9),
+         "ib": ("400 Gb/s InfiniBand NDR across nodes, one NIC a card: 50 GB/s", 50e9)}
 
 SKIPS = {
     # enc-dec with 448 target positions has no 500k-decode regime (DESIGN.md)
@@ -178,6 +203,65 @@ def _count_once(cfg, shape) -> dict:
     return {**counted, "count_s": time.perf_counter() - t0}
 
 
+def mesh_spec(name: str) -> tuple[tuple[int, ...], bool]:
+    """A mesh's name ("16x16", "2x16x16") -> (shape, multi_pod): three
+    sizes are ("pod", "data", "model")."""
+    shape = tuple(int(x) for x in name.split("x"))
+    if len(shape) not in (2, 3):
+        raise ValueError(f"mesh {name!r}: two or three sizes")
+    return shape, len(shape) == 3
+
+
+def _fake_world(n: int):
+    """A fake process group of ``n`` ranks, this process rank 0."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    return dist
+
+
+def _count_once_mesh(cfg, shape, mesh_name: str) -> dict:
+    """``_count_once`` of rank 0's sharded program on the ``mesh_name``
+    mesh, with the collective bytes it moves per device, by group
+    (``coll_bytes:<axes>``)."""
+    t0 = time.perf_counter()
+    mesh_shape, multi_pod = mesh_spec(mesh_name)
+    dist = _fake_world(int(torch.tensor(mesh_shape).prod()))
+    try:
+        mesh = make_device_mesh(mesh_shape, device="cpu")
+        with FakeTensorMode():
+            step, args, _ = build_step(cfg, shape, "cpu")
+            model, cache, batch = shd.place(
+                args[0], mesh, cfg=cfg, kind=shape.kind, multi_pod=multi_pod,
+                cache=args[2] if shape.kind == "decode" else None, batch=args[1])
+            if shape.kind == "prefill":
+                step = steps.make_prefill_step(cfg, shard_h=shd.residual_constraint(
+                    cfg, shape, mesh, multi_pod=multi_pod))
+                args = (model, batch)
+            else:
+                args = (model, batch, cache)
+            axes = shd.program_axes(cfg, shape, mesh, multi_pod=multi_pod)
+            with col.use_mesh(mesh, **axes), col.counting() as moved:
+                out, cost = step_cost.measure(step, *args)
+            counted = {"flops": cost.flops, "attention_flops": cost.attention_flops,
+                       "aten_bytes": cost.aten_bytes, "peak_bytes": cost.peak_bytes,
+                       "min_bytes": _min_bytes(cfg, shape, args, out), **cost.calls,
+                       **{"coll_bytes:" + ",".join(g): b for g, b in moved.by_group.items()}}
+    finally:
+        dist.destroy_process_group()
+    return {**counted, "count_s": time.perf_counter() - t0}
+
+
+def link_of(mesh_name: str, axes) -> str:
+    """The slowest link (a ``LINKS`` key) the group over ``axes`` spans:
+    NVLink when its ranks share one node, InfiniBand otherwise."""
+    shape, _ = mesh_spec(mesh_name)
+    names = POD_AXES if len(shape) == 3 else AXES
+    ranks = torch.arange(int(torch.tensor(shape).prod())).reshape(shape)
+    members = ranks[tuple(slice(None) if a in axes else 0 for a in names)]
+    return "nvlink" if len(set((members // NODE).flatten().tolist())) == 1 else "ib"
+
+
 def _lagrange(xs, ys, x) -> Fraction:
     """The polynomial through (xs, ys), of degree len(xs) - 1, at x."""
     total = Fraction(0)
@@ -227,62 +311,120 @@ def _direct(cfg, direct: bool) -> bool:
     return direct or bool(cfg.n_layers % layer_units(cfg)[0])
 
 
-def steps_of(arch: str, shape_name: str, *, smoke: bool = False) -> list[tuple]:
-    """The (config, shape) steps ``count`` counts for one record."""
+def sharded_program(cfg, shape) -> str | None:
+    """None when a mesh record runs the sharded program, else why not."""
+    if shape.kind == "train":
+        return "not yet: train sharded program not ported"
+    if cfg.family not in shd.SHARDED_FAMILIES:
+        return f"not yet: {cfg.family} sharded program not ported"
+    return None
+
+
+def steps_of(arch: str, shape_name: str, *, smoke: bool = False,
+             mesh: str = "1x1") -> list[tuple]:
+    """The steps ``count`` counts for one record: (config, shape), and the
+    mesh's name off the card's (1, 1) mesh, where the whole step is counted
+    once: a cut depth would change what the rules and ``decode_step`` read
+    off the parameter count (the 100B+ expert split)."""
     if (arch, shape_name) in SKIPS:
         return []
     cfg, shape = arch_config(arch, smoke=smoke), INPUT_SHAPES[shape_name]
+    if mesh != "1x1" and sharded_program(cfg, shape):
+        return []
+    if mesh != "1x1":
+        return [(cfg, shape, mesh)]
     return [(cfg, shape)] if _direct(cfg, False) else count_steps(cfg, shape)
 
 
-def count(arch: str, shape_name: str, *, smoke: bool = False, direct: bool = False,
-          once=_count_once) -> dict:
-    """The counted record of one (arch, shape) on the card's (1, 1) mesh;
-    ``direct`` (or a depth that is no whole number of layer units, as the
-    xLSTM's smoke config) counts the whole step once instead of
-    extrapolating. ``once`` counts one step (``count_all`` hands in the
-    steps its workers counted); ``count_s`` sums the seconds its steps
-    took."""
-    shape = INPUT_SHAPES[shape_name]
-    rec = {"arch": arch, "shape": shape_name, "mesh": "1x1", "device": DEVICE,
-           "smoke": smoke}
-    if (arch, shape_name) in SKIPS:
-        return {**rec, "status": "SKIP", "reason": SKIPS[(arch, shape_name)]}
-    cfg = arch_config(arch, smoke=smoke)
-    mesh = make_device_mesh("meta")
+def resident_bytes(cfg, shape, mesh_name: str = "1x1") -> dict:
+    """Params, batch, AdamW moments (train) and cache (decode) bytes per
+    device by the rules on the named mesh."""
+    mesh_shape, multi_pod = mesh_spec(mesh_name)
+    mesh = make_mesh(mesh_shape, POD_AXES if multi_pod else AXES, "meta")
     params = shd.abstract_params(cfg)
     batch = steps.batch_specs(cfg, shape)                # meta tensors
     resident = {
         "params": shd.tree_shard_bytes(
-            params, shd.param_shardings(cfg, mesh, kind=shape.kind, params=params), mesh),
-        "batch": shd.tree_shard_bytes(batch, shd.batch_shardings(cfg, shape, mesh), mesh)}
+            params, shd.param_shardings(cfg, mesh, multi_pod=multi_pod, kind=shape.kind,
+                                        params=params), mesh),
+        "batch": shd.tree_shard_bytes(batch, shd.batch_shardings(
+            cfg, shape, mesh, multi_pod=multi_pod), mesh)}
     if shape.kind == "train":
         # the two AdamW moments, float32 (``train.adamw_init``)
-        zero = shd.opt_shardings(cfg, mesh, params=params)
+        zero = shd.opt_shardings(cfg, mesh, multi_pod=multi_pod, params=params)
         resident["opt"] = 2 * sum(
             shd.shard_bytes(torch.empty(p.shape, dtype=torch.float32, device="meta"),
                             zero[n], mesh) for n, p in params.items())
     if shape.kind == "decode":
         cache = shd.abstract_cache(cfg, shape)
         resident["cache"] = shd.tree_shard_bytes(
-            cache, shd.cache_shardings(cfg, shape, mesh, cache=cache), mesh)
-    if _direct(cfg, direct):
+            cache, shd.cache_shardings(cfg, shape, mesh, multi_pod=multi_pod, cache=cache),
+            mesh)
+    return {**resident, "total": sum(resident.values())}
+
+
+def collective_term(counted: dict, mesh_name: str) -> tuple[float, dict]:
+    """(collective_s, per group: bytes per device, link, bandwidth) from a
+    mesh count's ``coll_bytes:<axes>`` counters."""
+    groups, total = {}, 0.0
+    for key in [k for k in counted if k.startswith("coll_bytes:")]:
+        axes = tuple(key.split(":", 1)[1].split(","))
+        link = link_of(mesh_name, axes)
+        nbytes = counted.pop(key)
+        groups[",".join(axes)] = {"bytes_per_device": nbytes, "link": LINKS[link][0],
+                                  "bytes_per_s": LINKS[link][1]}
+        total += nbytes / LINKS[link][1]
+    return total, groups
+
+
+def count(arch: str, shape_name: str, *, smoke: bool = False, direct: bool = False,
+          once=None, mesh: str = "1x1") -> dict:
+    """The counted record of one (arch, shape) on the named mesh (the
+    card's (1, 1) by default); ``direct`` (or a depth that is no whole
+    number of layer units, as the xLSTM's smoke config) counts the whole
+    step once instead of extrapolating. ``once`` counts one step
+    (``count_all`` hands in the steps its workers counted); ``count_s``
+    sums the seconds its steps took."""
+    shape = INPUT_SHAPES[shape_name]
+    n_cards = int(torch.tensor(mesh_spec(mesh)[0]).prod())
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh,
+           "device": DEVICE if mesh == "1x1" else
+           f"H100 SXM x {n_cards}, HGX nodes of {NODE}", "smoke": smoke}
+    if (arch, shape_name) in SKIPS:
+        return {**rec, "status": "SKIP", "reason": SKIPS[(arch, shape_name)]}
+    cfg = arch_config(arch, smoke=smoke)
+    resident = resident_bytes(cfg, shape, mesh)
+    if mesh != "1x1" and sharded_program(cfg, shape):
+        why = sharded_program(cfg, shape)
+        return {**rec, "status": "RULES_ONLY", "reason": why, "resident_bytes": resident,
+                "roofline": {"collective_s": None, "collective": why}}
+    if once is None:
+        once = _count_once if mesh == "1x1" else functools.partial(_count_once_mesh,
+                                                                   mesh_name=mesh)
+    if _direct(cfg, direct or mesh != "1x1"):
         counted, how = dict(once(cfg, shape)), {"direct": True}
         counted["calls"] = {k: counted.pop(k) for k in ("flash_attention",
                                                          "decode_attention")}
     else:
         counted, how = extrapolated_count(cfg, shape, once)
     count_s = counted.pop("count_s")
-    mf = model_flops(cfg, shape)
+    mf = model_flops(cfg, shape) / n_cards
     terms = {"compute_s": counted["flops"] / PEAK_FLOPS,
              "memory_s": counted["min_bytes"] / HBM_BW}
+    coll = {"collective_s": None, "collective": "none: one card, no collective"}
+    if mesh != "1x1":
+        coll_s, groups = collective_term(counted, mesh)
+        terms["collective_s"] = coll_s
+        coll = {"collective": {"counted_by": "distributed.collectives.counting: ring "
+                                             "all_reduce, 2(g-1)/g x bytes per device",
+                               "groups": groups}}
     fits = counted["peak_bytes"] <= HBM_BYTES
     return {
         **rec,
         "status": "OK" if fits else "DOES_NOT_FIT",
         "count_s": count_s,
         "counted_by": how,
-        "resident_bytes": {**resident, "total": sum(resident.values())},
+        "resident_bytes": resident,
         "peak_bytes": counted["peak_bytes"],
         "hbm_bytes": HBM_BYTES,
         "flops_per_device": counted["flops"],
@@ -290,8 +432,7 @@ def count(arch: str, shape_name: str, *, smoke: bool = False, direct: bool = Fal
         "attention_calls": counted["calls"],
         "min_bytes_per_device": counted["min_bytes"],
         "aten_bytes_per_device": counted["aten_bytes"],
-        "roofline": {**terms, "collective_s": None,
-                     "collective": "none: one card, no collective",
+        "roofline": {**terms, **coll,
                      "bound_s": max(terms.values()),
                      "dominant": max(terms, key=terms.get)},
         "model_flops": mf,
@@ -342,63 +483,74 @@ def measure(rec: dict, *, device="cuda") -> dict:
 
 
 def pick(records: list[dict], k: int) -> list[dict]:
-    """Up to ``k`` records that fit, decode shapes first."""
-    ok = [r for r in records if r["status"] == "OK"]
+    """Up to ``k`` records of the card's (1, 1) mesh that fit, decode
+    shapes first."""
+    ok = [r for r in records if r["status"] == "OK" and r["mesh"] == "1x1"]
     ok.sort(key=lambda r: INPUT_SHAPES[r["shape"]].kind != "decode")
     return ok[:k]
 
 
 def _count_worker(step) -> dict:
     torch.set_num_threads(1)
+    if len(step) == 3:
+        return _count_once_mesh(*step)
     return _count_once(*step)
 
 
 def count_all(archs, shapes, *, smoke: bool = False, workers: int | None = None,
-              log=print) -> list[dict]:
-    """``count`` of every (arch, shape), in the order given. Every step it
-    counts is a job of its own, and off the smoke configs the jobs go to
-    ``workers`` spawned processes (by default one per core, at most
+              log=print, meshes=("1x1",)) -> list[dict]:
+    """``count`` of every (arch, shape, mesh), in the order given. Every
+    step it counts is a job of its own, and off the smoke configs the jobs
+    go to ``workers`` spawned processes (by default one per core, at most
     COUNT_WORKERS), the longest first: the xLSTM's train step takes minutes."""
-    jobs = [(a, s) for a in archs for s in shapes]
+    jobs = [(a, s, m) for m in meshes for a in archs for s in shapes]
     if workers is None:
         workers = 1 if smoke else min(COUNT_WORKERS, os.cpu_count() or 1)
-    once = _count_once
+    once = {m: None for m in meshes}
     if workers > 1:
-        steps = list(dict.fromkeys(st for a, s in jobs for st in steps_of(a, s, smoke=smoke)))
+        steps = list(dict.fromkeys(st for a, s, m in jobs
+                                   for st in steps_of(a, s, smoke=smoke, mesh=m)))
         steps.sort(key=lambda st: (st[0].family not in ("ssm", "hybrid")
                                    or st[1].kind == "decode", -st[1].seq_len))
         ctx = multiprocessing.get_context("spawn")
         with ctx.Pool(workers) as pool:
             done = dict(zip(steps, pool.map(_count_worker, steps, chunksize=1), strict=True))
-
-        def once(cfg, shape):
-            return done[cfg, shape]
-    records = [count(a, s, smoke=smoke, once=once) for a, s in jobs]
+        for m in meshes:
+            once[m] = functools.partial(_done, done, mesh=None if m == "1x1" else m)
+    records = [count(a, s, smoke=smoke, once=once[m], mesh=m) for a, s, m in jobs]
     for rec in records:
-        if rec["status"] == "SKIP":
-            log(f"{rec['arch']:26s} {rec['shape']:12s} SKIP ({rec['reason']})")
+        if rec["status"] in ("SKIP", "RULES_ONLY"):
+            log(f"{rec['arch']:26s} {rec['shape']:12s} {rec['mesh']:8s} {rec['status']} "
+                f"({rec['reason']})")
             continue
         r = rec["roofline"]
-        log(f"{rec['arch']:26s} {rec['shape']:12s} {rec['status']:12s} peak "
+        coll = ("" if r.get("collective_s") is None
+                else f" coll={r['collective_s'] * 1e3:9.2f}ms")
+        log(f"{rec['arch']:26s} {rec['shape']:12s} {rec['mesh']:8s} {rec['status']:12s} peak "
             f"{rec['peak_bytes'] / 1e9:9.2f} GB resident "
             f"{rec['resident_bytes']['total'] / 1e9:9.2f} GB "
             f"{rec['flops_per_device'] / 1e12:10.2f} TFLOP "
-            f"comp={r['compute_s'] * 1e3:9.2f}ms mem={r['memory_s'] * 1e3:9.2f}ms "
+            f"comp={r['compute_s'] * 1e3:9.2f}ms mem={r['memory_s'] * 1e3:9.2f}ms{coll} "
             f"-> {r['dominant']} useful={rec['useful_flops_ratio']:.2f} "
             f"(counted in {rec['count_s']:.1f}s)")
     return records
 
 
+def _done(done: dict, cfg, shape, mesh: str | None = None) -> dict:
+    return done[(cfg, shape) if mesh is None else (cfg, shape, mesh)]
+
+
 def write(records: list[dict], out: str):
     os.makedirs(out, exist_ok=True)
     for rec in records:
-        with open(os.path.join(out, f"{rec['arch']}_{rec['shape']}_1x1.json"), "w") as f:
+        name = f"{rec['arch']}_{rec['shape']}_{rec['mesh']}.json"
+        with open(os.path.join(out, name), "w") as f:
             json.dump(rec, f, indent=1)
 
 
 def run(archs, shapes, *, smoke: bool = False, measure_k: int = 0, device="cuda",
-        out: str | None = None, log=print) -> list[dict]:
-    records = count_all(archs, shapes, smoke=smoke, log=log)
+        out: str | None = None, log=print, meshes=("1x1",)) -> list[dict]:
+    records = count_all(archs, shapes, smoke=smoke, log=log, meshes=meshes)
     for rec in pick(records, measure_k):
         rec["measured"] = measure(rec, device=device)
         log(f"measured {rec['arch']} {rec['shape']}: {json.dumps(rec['measured'])}")
@@ -419,11 +571,17 @@ def main(argv=None):
                     help="run up to this many records that fit on the device")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="chiprun_out/dryrun")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="count per device on the 2 x 16 x 16 mesh instead of one card")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="count per device on 16 x 16 and 2 x 16 x 16 instead of one card")
     args = ap.parse_args(argv)
     archs = list(ARCHS) if args.all or args.arch is None else [args.arch]
     shapes = list(INPUT_SHAPES) if args.all or args.shape is None else [args.shape]
-    run(archs, shapes, smoke=args.smoke, measure_k=args.measure, device=args.device,
-        out=args.out)
+    meshes = (PRODUCTION_MESHES if args.both_meshes else
+              ("2x16x16",) if args.multi_pod else ("1x1",))
+    run(archs, shapes, smoke=args.smoke, measure_k=args.measure if meshes == ("1x1",) else 0,
+        device=args.device, out=args.out, meshes=meshes)
     print("dry-run complete")
 
 

@@ -163,12 +163,22 @@ def _kernels_counted(cost: StepCost, memory: _Memory):
         memory.aten_bytes += nbytes(q) * 2 + nbytes(k) + nbytes(v)
         return run(saved[0], q, q, k, v, causal=causal, window=window)
 
-    def decode(q, k, v, valid_mask):
+    def decode(q, k, v, valid_mask, *, return_lse=False):
         B, _, H, D = q.shape
         cost.attention_flops += 4.0 * B * H * k.shape[1] * D
         cost.calls["decode_attention"] += 1
         memory.aten_bytes += nbytes(q) * 2 + nbytes(k) + nbytes(v) + nbytes(valid_mask)
-        return run(saved[1], q, q, k, v, valid_mask)
+        if not return_lse:
+            return run(saved[1], q, q, k, v, valid_mask)
+        lse = q.new_empty((B, H), dtype=torch.float32)
+        memory.aten_bytes += nbytes(lse)
+        if _fake(q):
+            return torch.empty_like(q), lse
+        with _disable_current_modes():
+            out = saved[1](q, k, v, valid_mask, return_lse=True)
+        for t in out:
+            memory.track(t)
+        return out
 
     ops.flash_attention, ops.decode_attention = flash, decode
     try:

@@ -8,6 +8,14 @@ last one MoE, as the reference's scanned block. The KV cache stays
 stacked, ``[L, B, C, kv, hd]`` plus ``pos [B]``, as the reference's
 ``init_cache`` lays it out. The vlm family prepends the projected vision
 embeddings ``vision_embeds [B, P, d]`` to the token embeddings.
+
+Under a running mesh (``distributed.collectives``; the dense and moe
+families) each rank holds its blocks (``distributed.sharding.place``) and
+the layers run the sharded program: column/row-parallel attention, MLP and
+``lm_head``, expert-parallel MoE, a vocab- or width-split embedding, and,
+with ``shard_h``, the sequence-parallel residual stream, whose block each
+layer gathers before it attends. The logits come back whole for the
+rank's batch rows.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ from torch import nn
 
 from repro_torch import nn as rnn
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as col
 from repro_torch.models.config import ArchConfig
 
 
@@ -112,11 +121,20 @@ def init_model(seed: int, cfg: ArchConfig, *, device="cuda") -> DecoderLM:
 
 def embed_inputs(params: DecoderLM, batch, cfg: ArchConfig):
     """tokens [B, S] (+ vision_embeds [B, P, d] for vlm) -> h [B, S_total, d]."""
-    h = rnn.embedding(params.embed, batch["tokens"])
+    h = rnn.embedding(params.embed, batch["tokens"], cfg.vocab, cfg.d_model)
     if cfg.family == "vlm":
-        vis = rnn.linear(params.vis_proj, batch["vision_embeds"].to(h.dtype))
+        vis = rnn.linear_cols(params.vis_proj, batch["vision_embeds"].to(h.dtype),
+                              cfg.d_model)
         h = torch.cat([vis, h], dim=1)
     return h
+
+
+def lm_head(params: DecoderLM, h, cfg: ArchConfig):
+    """Logits [..., vocab] from a rank's whole ``lm_head`` or its block:
+    vocab columns (gathered) or d_model rows (summed over "model")."""
+    if params.lm_head.w.shape[0] < cfg.d_model:
+        return rnn.linear_rows(params.lm_head, h, cfg.d_model)
+    return rnn.linear_cols(params.lm_head, h, cfg.vocab)
 
 
 def _zero_aux(device):
@@ -136,9 +154,12 @@ def forward(params: DecoderLM, batch, cfg: ArchConfig, *, window=None,
     layers (and over an interleave block's sub-layers first, as the
     reference) of the MoE load-balance loss and dropped fraction, zero for
     a dense layer. ``sdpa`` goes to ``attention_prefill`` (the train
-    step's differentiable attention). ``shard_h`` (and ``cfg.remat``) are
-    the reference's sharding and training concerns; they are accepted and
-    ignored."""
+    step's differentiable attention). ``shard_h`` (``distributed.sharding
+    .residual_constraint``) is applied to the residual stream after every
+    entry of ``layers``, as the reference's scan body does; under a running
+    mesh it keeps the rank's block of the sequence, which the next layer
+    gathers. ``cfg.remat`` is a training concern the eager program does
+    not need. A collected cache is laid out as the cache rule places it."""
     h = embed_inputs(params, batch, cfg)
     B, S_total = h.shape[:2]
     _, norm = _norm_fns(cfg)
@@ -147,6 +168,8 @@ def forward(params: DecoderLM, batch, cfg: ArchConfig, *, window=None,
     for lp in params.layers:
         sub_aux = []
         for sp, use_moe in _sub_layers(cfg, lp):
+            if h.shape[1] != S_total:                     # a sequence block: gather it
+                h = col.gather(h, "model", 1)
             a, (k, v) = rnn.attention_prefill(
                 sp.attn, norm(sp.ln_attn, h),
                 n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
@@ -164,15 +187,24 @@ def forward(params: DecoderLM, batch, cfg: ArchConfig, *, window=None,
                 ks.append(k)
                 vs.append(v)
         auxs.append(sub_aux[0] if len(sub_aux) == 1 else _mean_aux(sub_aux))
+        if shard_h is not None:
+            h = shard_h(h)
+    if h.shape[1] != S_total:
+        h = col.gather(h, "model", 1)
     if last_only:
         h = h[:, -1:]
     h = norm(params.ln_f, h)
     aux = _mean_aux(auxs)
     if return_hidden:
         return h, aux
-    logits = rnn.linear(params.lm_head, h)
+    logits = lm_head(params, h, cfg)
     if collect_cache:
-        cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+        k, v = torch.stack(ks), torch.stack(vs)
+        if k.shape[3] != cfg.n_kv:                      # the cache holds every kv head
+            k, v = col.gather(k, "model", 3), col.gather(v, "model", 3)
+        if S_total % col.span("model") == 0:            # and a block of its slots
+            k, v = col.block(k, "model", 2).contiguous(), col.block(v, "model", 2).contiguous()
+        cache = {"k": k, "v": v,
                  "pos": torch.full((B,), S_total, dtype=torch.int32, device=h.device)}
         return logits, aux, cache
     return logits, aux
@@ -195,9 +227,12 @@ def decode_step(params: DecoderLM, batch, cache, cfg: ArchConfig, *,
     Layer l (block-major through an interleave) writes its new k/v slot in
     place into ``cache["k"][l]`` / ``cache["v"][l]``; the returned cache
     holds the same tensors and ``pos + 1``."""
-    h = rnn.embedding(params.embed, batch["tokens"])
+    h = rnn.embedding(params.embed, batch["tokens"], cfg.vocab, cfg.d_model)
     pos = cache["pos"]
     _, norm = _norm_fns(cfg)
+    # 100B+ MoE decode keeps the expert weights resident, E x d_ff split
+    # over ("model", "data"), and sums activations instead (the reference's)
+    ep2d = cfg.n_experts > 0 and cfg.param_count() > 1e11
     layers = [sl for lp in params.layers for sl in _sub_layers(cfg, lp)]
     for i, (lp, use_moe) in enumerate(layers):
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i], "pos": pos}
@@ -208,10 +243,10 @@ def decode_step(params: DecoderLM, batch, cache, cfg: ArchConfig, *,
         h = h + a
         x = norm(lp.ln_mlp, h)
         if use_moe:
-            m, _ = rnn.moe(lp.moe, x, top_k=cfg.top_k, need_aux=False)
+            m, _ = rnn.moe(lp.moe, x, top_k=cfg.top_k, need_aux=False, ep2d=ep2d)
         else:
             m = rnn.mlp(lp.mlp, x, kind=cfg.mlp_kind)
         h = h + m
     h = norm(params.ln_f, h)
-    logits = rnn.linear(params.lm_head, h)
+    logits = lm_head(params, h, cfg)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

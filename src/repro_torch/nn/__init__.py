@@ -5,7 +5,7 @@ reference's name that applies it:
 The serving layers create their parameters without gradients; the OPD
 networks built from them (policy, predictor) switch gradients on.
 """
-from repro_torch.nn.linear import Linear, linear, Embedding, embedding
+from repro_torch.nn.linear import Linear, linear, linear_rows, linear_cols, Embedding, embedding
 from repro_torch.nn.norms import RMSNorm, rmsnorm, LayerNorm, layernorm
 from repro_torch.nn.rope import rope_frequencies, apply_rope
 from repro_torch.nn.mlp import MLP, mlp

@@ -14,15 +14,28 @@ reference, so the CPU parity tests line up one to one. The kernels have no
 backward, as the Pallas kernels have none: the train step asks prefill for
 ``sdpa=True``, the reference's ``use_flash=False`` computation, on every
 device.
+
+Under a running mesh (``distributed.collectives``) a rank holds the block
+of ``wq`` (and ``wk``/``wv`` when the kv heads divide) that the rules give
+it: its local query heads, read off the weights' widths. Prefill runs over
+the local heads and the kv heads they use, and ``wo`` (a row block) sums
+over "model". Decode over a cache whose length C is split over "model"
+(``collectives.cache_axes``) is flash-decoding across ranks: q and the new
+token's k/v are gathered (a few KB), the rank that owns slot ``pos``
+writes it, every rank runs the decode kernel over its own C/M slots for
+every head and returns out and log-sum-exp, and the ranks' partials merge
+with one ``pmax`` and one ``psum``; each rank keeps its heads' slice for
+``wo``. A whole cache is written whole on every rank.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.distributed import collectives as col
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.nn.linear import Linear, linear
+from repro_torch.nn.linear import Linear, linear, linear_rows
 from repro_torch.nn.rope import apply_rope, rope_frequencies
 
 
@@ -39,11 +52,29 @@ class Attention(nn.Module):
 
 
 def _qkv(params: Attention, x, n_heads: int, n_kv: int, head_dim: int):
+    """q [B, S, Hq, hd], k/v [B, S, Hk, hd]: Hq and Hk are the heads this
+    rank's ``wq`` and ``wk`` hold (all of them off a mesh)."""
     B, S, _ = x.shape
-    q = linear(params.wq, x).reshape(B, S, n_heads, head_dim)
-    k = linear(params.wk, x).reshape(B, S, n_kv, head_dim)
-    v = linear(params.wv, x).reshape(B, S, n_kv, head_dim)
+    q = linear(params.wq, x).reshape(B, S, -1, head_dim)
+    k = linear(params.wk, x).reshape(B, S, -1, head_dim)
+    v = linear(params.wv, x).reshape(B, S, -1, head_dim)
     return q, k, v
+
+
+def _kv_for_heads(k, v, Hq: int, n_heads: int, n_kv: int):
+    """The kv heads (dim 2) that this rank's Hq query heads use, grouped as
+    GQA takes them. Only a rank holding a block of the query heads over
+    whole kv heads (starcoder2: Hkv = 2 on M = 4) selects; otherwise the
+    local heads are already a matching block."""
+    if Hq == n_heads or k.shape[2] != n_kv:
+        return k, v
+    g = n_heads // n_kv
+    h0 = col.index("model") * Hq
+    if g % Hq == 0 or Hq % g == 0:
+        sel = slice(h0 // g, h0 // g + max(1, Hq // g))
+        return k[:, :, sel], v[:, :, sel]
+    idx = (h0 + torch.arange(Hq, device=k.device)) // g       # one kv head per q head
+    return k[:, :, idx], v[:, :, idx]
 
 
 def _sdpa(q, k, v, mask):
@@ -114,25 +145,27 @@ def attention_prefill(params: Attention, x, *, n_heads: int, n_kv: int,
     path (no [S, S] materialisation)."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, n_heads, n_kv, head_dim)
+    Hq = q.shape[2]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     if rope_theta is not None:
         inv = rope_frequencies(head_dim, theta=rope_theta, device=x.device)
         q = apply_rope(q, positions, inv)
         k = apply_rope(k, positions, inv)
+    ku, vu = _kv_for_heads(k, v, Hq, n_heads, n_kv)
     if not sdpa and (use_flash or x.device.type == "cuda"):
-        out = kops.flash_attention(q, k.contiguous(), v.contiguous(),
+        out = kops.flash_attention(q, ku.contiguous(), vu.contiguous(),
                                    causal=True, window=window)
     elif S > blocked_threshold and S % 1024 == 0:
-        out = _sdpa_blocked(q, k, v, window=window)
+        out = _sdpa_blocked(q, ku, vu, window=window)
     else:
         idx = torch.arange(S, device=x.device)
         mask = idx[None, :] <= idx[:, None]            # causal
         if window is not None:
             mask = mask & (idx[None, :] > idx[:, None] - window)
-        out = _sdpa(q, k, v, mask[None, None, None, :, :])
-    out = out.reshape(B, S, n_heads * head_dim)
-    return linear(params.wo, out), (k, v)
+        out = _sdpa(q, ku, vu, mask[None, None, None, :, :])
+    out = out.reshape(B, S, Hq * head_dim)
+    return linear_rows(params.wo, out, n_heads * head_dim), (k, v)
 
 
 def make_kv_cache(batch: int, context: int, n_kv: int, head_dim: int, *,
@@ -159,27 +192,58 @@ def attention_decode(params: Attention, x, cache, *, n_heads: int, n_kv: int,
     B, S, _ = x.shape
     if S != 1:
         raise ValueError(f"decode takes one token per sequence, got {S}")
-    C = cache["k"].shape[1]
     pos = cache["pos"]                                   # [B]
     q, k, v = _qkv(params, x, n_heads, n_kv, head_dim)
+    Hq = q.shape[2]
     if rope_theta is not None:
         inv = rope_frequencies(head_dim, theta=rope_theta, device=x.device)
         q = apply_rope(q, pos[:, None], inv)
         k = apply_rope(k, pos[:, None], inv)
+    if k.shape[2] != n_kv:                               # the cache holds every kv head
+        k, v = col.gather(k, "model", 2), col.gather(v, "model", 2)
+    Cl = cache["k"].shape[1]                             # this rank's slots
+    split = "model" in col.cache_axes()
+    C = Cl * col.span("model") if split else Cl
+    lo = col.index("model") * Cl if split else 0
     slot = (pos % C) if ring else torch.clamp(pos, max=C - 1)
     bidx = torch.arange(B, device=x.device)
+    if split:       # only the owner of slot ``pos`` writes; the others rewrite a slot as is
+        own = ((slot >= lo) & (slot < lo + Cl))[:, None, None]
+        slot = torch.clamp(slot - lo, 0, Cl - 1)
+        k = torch.where(own, k[:, 0].to(cache["k"].dtype), cache["k"][bidx, slot])[:, None]
+        v = torch.where(own, v[:, 0].to(cache["v"].dtype), cache["v"][bidx, slot])[:, None]
     cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
     # valid slots: contiguous -> [0, pos]; ring -> min(pos+1, C) most recent
     n_valid = torch.clamp(pos + 1, max=C)                # [B]
-    mask = torch.arange(C, device=x.device)[None, :] < n_valid[:, None]  # [B, C]
-    if use_flash or x.device.type == "cuda":
-        out = kops.decode_attention(q, cache["k"], cache["v"], mask)
+    mask = lo + torch.arange(Cl, device=x.device)[None, :] < n_valid[:, None]  # [B, Cl]
+    if split:
+        out = _decode_merged(q, cache["k"], cache["v"], mask, n_heads)
     else:
-        out = _sdpa(q, cache["k"], cache["v"], mask[:, None, None, None, :])
-    out = out.reshape(B, 1, n_heads * head_dim)
+        ck, cv = _kv_for_heads(cache["k"], cache["v"], Hq, n_heads, n_kv)
+        if use_flash or x.device.type == "cuda":
+            out = kops.decode_attention(q, ck.contiguous(), cv.contiguous(), mask)
+        else:
+            out = _sdpa(q, ck, cv, mask[:, None, None, None, :])
+    out = out.reshape(B, 1, Hq * head_dim)
     new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
-    return linear(params.wo, out), new_cache
+    return linear_rows(params.wo, out, n_heads * head_dim), new_cache
+
+
+def _decode_merged(q, ck, cv, mask, n_heads: int):
+    """Decode attention over a cache whose slots are split over "model":
+    every head over this rank's slots, merged across the ranks by
+    log-sum-exp -> this rank's heads [B, 1, Hq, D] in q's dtype."""
+    B, _, Hq, D = q.shape
+    qa = col.gather(q, "model", 2) if Hq < n_heads else q
+    out, lse = kops.decode_attention(qa, ck, cv, mask, return_lse=True)
+    top = col.pmax(lse, "model")                           # [B, H]: some rank has a slot
+    w = torch.exp(lse - top)                               # 0 where lse = -inf
+    part = torch.cat([(out.to(torch.float32) * w[:, None, :, None]).reshape(B, -1), w], 1)
+    tot = col.psum(part, "model")
+    num = tot[:, :n_heads * D].reshape(B, 1, n_heads, D)
+    merged = (num / tot[:, n_heads * D:][:, None, :, None]).to(q.dtype)
+    return col.block(merged, "model", 2) if Hq < n_heads else merged
 
 
 def init_cross_attention(dim: int, n_heads: int, head_dim: int, *,

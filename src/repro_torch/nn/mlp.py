@@ -1,14 +1,16 @@
 """Feed-forward blocks: SwiGLU (llama-style) and GELU (whisper/gpt-style).
 
 The GELU is the tanh approximation, as ``jax.nn.gelu``'s default; torch's
-default exact GELU would not match the reference."""
+default exact GELU would not match the reference. Under a running mesh
+the up projections may hold a column block of d_ff and the down
+projection the matching row block (``linear_rows`` sums over "model")."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.nn.linear import Linear, linear
+from repro_torch.nn.linear import Linear, linear, linear_rows
 
 
 class MLP(nn.Module):
@@ -18,6 +20,7 @@ class MLP(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.kind = kind
+        self.hidden = hidden
         if kind == "swiglu":
             self.wg = Linear(dim, hidden, **kw)
             self.wu = Linear(dim, hidden, **kw)
@@ -34,6 +37,6 @@ def mlp(params: MLP, x, *, kind: str = "swiglu"):
     if kind == "swiglu":
         g = linear(params.wg, x)
         u = linear(params.wu, x)
-        return linear(params.wd, F.silu(g) * u)
+        return linear_rows(params.wd, F.silu(g) * u, params.hidden)
     h = F.gelu(linear(params.w1, x), approximate="tanh")
-    return linear(params.w2, h)
+    return linear_rows(params.w2, h, params.hidden)

@@ -5,9 +5,26 @@ Dispatch gathers, per expert, its top-C tokens by gate (``_route``), runs
 the SwiGLU FFN on the stacked expert weights ``[E_phys, d, f]`` and adds
 the gated outputs back in float32 (``_dispatch_compute_combine``): ``[E,
 C]`` indices and ``[E, C, d]`` activations, never a one-hot ``[T, E, C]``
-dispatch tensor. The
-reference's ``shard_map`` paths (expert parallelism over a mesh) compute
-the same function; on one device they are this single path.
+dispatch tensor.
+
+Under a running mesh (``distributed.collectives``) a rank holds the block
+of the stacked experts that the rules give it, read off the weights'
+shapes, and runs the reference's ``shard_map`` bodies:
+
+  * expert parallel (``wg`` holds E_phys/M experts): route the rank's
+    batch rows on the whole (replicated) router, keep the plan's rows of
+    the local experts, gather, FFN and scatter shard-locally, then one f32
+    ``psum`` over "model". A 100B+ model's train/prefill blocks are also
+    split over "data" (FSDP) and are gathered first;
+  * ``ep2d`` (decode of a 100B+ model: E over "model", d_ff over "data"):
+    the activations are gathered over the batch axes so every rank routes
+    the whole batch, the partial sums go through one ``psum`` over
+    ("model", "data"), and the rank keeps its rows;
+  * fewer experts than the model axis: d_ff over "model" in every expert,
+    then ``psum`` over "model".
+
+The aux loss is the reference's over the whole batch: its sums are added
+over the batch axes.
 
 Experts >= 16 are padded to a multiple of 16 (``_phys_experts``), as the
 reference lays its leaves out; the router stays at the logical E, so a
@@ -34,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import collectives as col
 from repro_torch.nn.linear import Linear, _normal
 
 
@@ -62,6 +80,7 @@ class MoE(nn.Module):
     def __init__(self, dim: int, hidden: int, n_experts: int, *, dtype=torch.float32,
                  device="cpu", generator: torch.Generator | None = None):
         super().__init__()
+        self.hidden = hidden
         self.experts = Experts(dim, hidden, _phys_experts(n_experts), dtype=dtype,
                                device=device, generator=generator)
         self.router = Linear(dim, n_experts, dtype=torch.float32, device=device,
@@ -134,15 +153,54 @@ def _aux(gsel, probs, E: int):
     return {"lb_loss": lb_loss, "dropped_frac": torch.clamp(dropped, 0.0, 1.0)}
 
 
+def _aux_sharded(gsel, probs, E: int, axes):
+    """``_aux`` over the whole batch when the rows are split over ``axes``:
+    the counts and probability sums are added across the ranks first."""
+    B, S, _ = probs.shape
+    used = (gsel > 0).to(torch.float32)
+    sums = col.psum(torch.cat([used.sum(dim=(0, 2))[:E], used.sum()[None],
+                               probs.sum(dim=(0, 1)),
+                               torch.full((1,), float(B * S), device=probs.device)]), axes)
+    per_e, total, psum_e, n = sums[:E], sums[E], sums[E + 1:2 * E + 1], sums[-1]
+    lb_loss = E * torch.sum(per_e / torch.clamp(total, min=1.0) * (psum_e / n))
+    dropped = 1.0 - total / torch.clamp(n * probs.shape[-1], min=1.0)
+    return {"lb_loss": lb_loss, "dropped_frac": torch.clamp(dropped, 0.0, 1.0)}
+
+
 def moe(params: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
-        need_aux: bool = True):
+        need_aux: bool = True, ep2d: bool = False):
     """x [B, S, d] -> (y [B, S, d] in x's dtype, aux). A decode step passes
     ``need_aux=False`` and gets ``aux=None``: the reference computes the aux
-    there and drops it, which XLA elides and eager PyTorch would not."""
+    there and drops it, which XLA elides and eager PyTorch would not.
+    ``ep2d`` (the decode of a 100B+ model) takes the two-axis path when the
+    rank's experts are split so (module docstring)."""
     E = params.router.w.shape[1]
     w = params.experts
-    gsel, tok_idx, probs, _ = _route(params, x, top_k=top_k,
-                                     capacity_factor=capacity_factor,
-                                     E_phys=w.wg.shape[0])
-    y = _dispatch_compute_combine(x, gsel, tok_idx, w.wg, w.wu, w.wd)
-    return y.to(x.dtype), (_aux(gsel, probs, E) if need_aux else None)
+    E_phys = _phys_experts(E)
+    wg, wu, wd = w.wg, w.wu, w.wd
+    sharded = wg.shape[0] < E_phys or wg.shape[2] < params.hidden
+    if col.current_mesh() is None or not sharded:
+        gsel, tok_idx, probs, _ = _route(params, x, top_k=top_k,
+                                         capacity_factor=capacity_factor, E_phys=E_phys)
+        y = _dispatch_compute_combine(x, gsel, tok_idx, wg, wu, wd)
+        return y.to(x.dtype), (_aux(gsel, probs, E) if need_aux else None)
+    bax = col.batch_axes()
+    two_d = ep2d and wg.shape[0] < E_phys and wg.shape[2] < params.hidden
+    if wg.shape[1] < x.shape[-1]:            # FSDP blocks of a 100B+ train/prefill
+        wg, wu = col.gather(wg, "data", 1), col.gather(wu, "data", 1)
+        wd = col.gather(wd, "data", 1)
+    xr = col.gather(x, bax, 0) if two_d and bax else x
+    gsel, tok_idx, probs, _ = _route(params, xr, top_k=top_k,
+                                     capacity_factor=capacity_factor, E_phys=E_phys)
+    El = wg.shape[0]
+    e0 = col.index("model") * El if El < E_phys else 0
+    y = _dispatch_compute_combine(xr, gsel[:, e0:e0 + El], tok_idx[:, e0:e0 + El],
+                                  wg, wu, wd)
+    y = col.psum(y, ("model", "data") if two_d else "model")
+    if two_d and bax:
+        y = col.block(y, bax, 0)
+    aux = None
+    if need_aux:
+        aux = (_aux_sharded(gsel, probs, E, bax) if bax and not two_d
+               else _aux(gsel, probs, E))
+    return y.to(x.dtype), aux

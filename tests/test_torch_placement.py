@@ -140,7 +140,7 @@ def test_card_mesh_places_everything_whole():
     """On (1, 1) every entry keeps its tensor whole (each device holds all
     its bytes), and ``place`` moves model, cache and batch to the mesh's
     device; a larger mesh is refused, importing built no device state."""
-    mesh = make_device_mesh("cpu")
+    mesh = make_device_mesh(device="cpu")
     assert mesh.shape == {"data": 1, "model": 1} and mesh.size == 1
     cfg = ARCHS["granite-moe-3b-a800m"]
     params = _params("granite-moe-3b-a800m")
