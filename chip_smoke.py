@@ -66,14 +66,14 @@ Phases (any failure exits non-zero):
            valid slot and again over random caches with several valid slots;
            then Session.serve of the registered serve2 pipeline, both stages
            live, with perf_source="calibrated" on that table (capacity
-           controller, bursty, seed 3, 30 s): the runtime phase's checks on
+           controller, bursty, seed 3, 20 s): the runtime phase's checks on
            every stage, and the calibrated virtual p50/p99 and cost beside
            the analytic (TPU v5e) run's; then the same spec for 30 s under
            the random controller, which executes every variant of both stages
   families the registered serve3 (stage 2: granite-moe-3b-a800m, zamba2-2.7b)
            served live at full width in f32 with the runtime phase's checks,
-           under the greedy controller and the random one (seed 2), 30 s
-           each (random executes every variant of every stage); the plain
+           under the greedy controller (20 s) and the random one (seed 2,
+           30 s, which executes every variant of every stage); the plain
            path of a MoE replays the kernel path's dispatch plans
            (moe_plans); granite-3-8b and llava-next-mistral-7b at full width
            in bf16 (ArchConfig.dtype) through one StageServer:
@@ -84,7 +84,7 @@ Phases (any failure exits non-zero):
            against their eager steps and the plain attention path
   paper4   the registered paper-4stage served live at full width in bf16
            (Session(..., dtype="bfloat16"), about 50.5 GiB) under the random
-           controller (seed 2; bursty, seed 3, 60 s), which executes every
+           controller (seed 2; bursty, seed 3, 40 s), which executes every
            variant of every stage, with the runtime phase's checks (served +
            shed = offered, virtual-time results equal real=False, each
            variant's logits against the plain attention path within 4e-2 of
@@ -109,11 +109,13 @@ Phases (any failure exits non-zero):
            launch/runtime_train_throughput.py at 1, 8 and 32 envs with
            captured blocks against the RuntimeEnv loop
   train    launch/train.py with llama3.2-1b at published width and depth
-           (f32, batch 4 x 1024, 3 steps): finite losses, grad_norm > 0,
+           (f32, batch 4 x 1024, 3 steps, each layer rematerialised as the
+           published config says): finite losses, grad_norm > 0,
            every parameter changed after step 1, step ms, tokens/s, peak
-           memory, one profiled step with _sdpa's share; one --microbatch 2
-           step from the same weights (loss 1e-5 rel, params 1e-4); one step
-           at 2 layers held against the CPU with the card's weights (loss
+           memory beside PR 19's (no remat then), one profiled step with
+           _sdpa's share; one --microbatch 2 step from the same weights
+           (loss 1e-5 rel, params 1e-4); one step at 2 layers, batch
+           1 x 1024, held against the CPU with the card's weights (loss
            1e-5, grad_norm 1e-4, params 1e-4); both kernel wrappers refuse
            an input that requires grad; the phase launches no attention
            kernel (training computes the reference's _sdpa)
@@ -137,13 +139,24 @@ Phases (any failure exits non-zero):
            slowest rank's step; an ep2d MoE layer at granite-moe's widths on
            (2, 2) against one rank; the decode kernel's lse output (an empty
            row gives 0 and -inf) against its plain version
+  mesh_train
+           the sharded train step: llama3.2-1b at published width and depth
+           in f32 on a (2, 2) mesh of four ranks sharing the card over gloo,
+           batch 4 x 512, shard_h, ZeRO-1 moments, two steps, and
+           granite-moe-3b-a800m at published width cut to 4 layers, one step
+           with the MoE plans replayed; each against the one-rank step on
+           the card from the same seed (loss 1e-5, grad_norm 1e-4, every
+           parameter and moment block 1e-4 of max(1, max-abs) after the last
+           step), per-rank GiB of parameters, grads and moments beside the
+           rules' bytes, peak and step ms
   dryrun   launch/dryrun.py: every (arch, INPUT_SHAPES) step counted on fake
            tensors on the card's (1, 1) mesh (params, moments, cache and
            batch bytes through distributed.sharding's rules, flops, minimum
            and aten bytes and the peak of live storage through
            launch/step_cost.py, model flops, roofline terms against the
            H100's peaks), by the launcher in worker processes on the host's
-           CPU after every other phase; then up to three records that fit
+           CPU, started before the twin phase and run beside it and the
+           train, figures, mesh and mesh_train phases; then up to three records that fit
            run on the card (decode shapes first): ms, peak memory against
            the counted peak (at most +25%), share of the bound; records
            under chiprun_out/dryrun/
@@ -1479,12 +1492,12 @@ def phase_calibrate() -> dict:
     # (c) the whole serve2 loop live on the card's own physics
     calibration.register_table("h100-serve2", table)
     # the registered serve2 pipeline, both stages, on the measured table:
-    # stage1_spec's scenario, cut from 120 s to 30 s to keep the whole
+    # stage1_spec's scenario, cut from 120 s to 20 s to keep the whole
     # script within two thirds of its limit, under the capacity controller
     spec = api.ExperimentSpec(
         pipeline=replace(api.get_pipeline("serve2"), perf_source="calibrated",
                          calibration="h100-serve2"),
-        scenario=replace(api.get_scenario("bursty"), seed=3, horizon=30),
+        scenario=replace(api.get_scenario("bursty"), seed=3, horizon=20),
         controller=replace(api.get_controller("capacity"), seed=3),
         backend="runtime", real=True)
     pipe = spec.pipeline.build()
@@ -1521,7 +1534,8 @@ def phase_calibrate() -> dict:
     return {k: grid_counts[k] + loop_counts[k] + cycle_counts[k] for k in grid_counts}
 
 
-FAMILY_SERVE = (("greedy", 3, 30, False), ("random", 2, 30, True))  # controller, seed, horizon,
+# greedy 20 s of the 30 s it ran through PR 23, to keep the script under 1100 s
+FAMILY_SERVE = (("greedy", 3, 20, False), ("random", 2, 30, True))  # controller, seed, horizon,
                                                                     # every variant executed
 GRAPH_ARCHS = ("granite-moe-3b-a800m", "zamba2-2.7b")
 BF16_ARCHS = ("granite-3-8b", "llava-next-mistral-7b")   # paper-4stage's stage 3
@@ -1633,7 +1647,7 @@ def bf16_stage() -> dict:
 def phase_families() -> dict:
     """serve3's stage 2 families (granite-moe, zamba2) and paper-4stage's
     stage 3 (granite-3-8b, llava) on the card: the registered serve3 served
-    live at full width in f32 under greedy and random (30 s each; random runs
+    live at full width in f32 under greedy (20 s) and random (30 s; random runs
     every variant of every stage live) with the runtime phase's checks; the two
     stage-3 archs at full width in bf16 (bf16_stage); graph-captured decode
     steps of granite-moe and zamba2 in bf16 and int8 at b = 1 and 32, held
@@ -1697,7 +1711,9 @@ def phase_families() -> dict:
     return counts
 
 
-PAPER4 = ("paper-4stage", "bursty", 3, 60, "random", 2)   # pipeline, arrivals, seed,
+# 40 s of the 60 s it ran through PR 23 (the same decisions and arrivals up to 40 s;
+# every variant of every stage still runs), to keep the script under 1100 s
+PAPER4 = ("paper-4stage", "bursty", 3, 40, "random", 2)   # pipeline, arrivals, seed,
                                                           # horizon (s), controller, seed
 
 
@@ -1767,42 +1783,58 @@ def phase_paper4() -> dict:
 
 DRYRUN_MEASURE = 3          # records that fit, run on the card (decode shapes first)
 DRYRUN_OUT = "chiprun_out/dryrun"
+DRYRUN_LOG = os.path.join(DRYRUN_OUT, "count.log")
 DRYRUN_PEAK_SLACK = 1.25    # measured peak <= counted peak + 25%
 
 
-def phase_dryrun() -> dict:
+def start_dryrun_count():
+    """Start launch/dryrun.py's count of every record on the host's CPU (its
+    steps in worker processes) -> (the process, its start time)."""
+    os.makedirs(DRYRUN_OUT, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"))
+    with open(DRYRUN_LOG, "w") as log:          # a file: nobody reads a pipe meanwhile
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--measure", "0",
+             "--device", "cpu", "--out", DRYRUN_OUT],
+            env=env, stdout=log, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)                 # its workers die with it
+    return proc, time.perf_counter()
+
+
+def stop(proc) -> None:
+    """Kill ``proc`` and its process group if it still runs."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def phase_dryrun(count=None) -> dict:
     """launch/dryrun.py: every (arch, INPUT_SHAPES) record counted on fake
     tensors by the launcher on the host's CPU (its steps in worker
-    processes; after every phase but bench, so that nothing it loads the
-    host with runs beside a timed phase), then up to DRYRUN_MEASURE records
-    that fit run on the card. Gates: every record has a status, counted flops > 0 where OK,
+    processes; ``count``, from start_dryrun_count, when a whole run started
+    it beside the twin, train, figures, mesh and mesh_train phases; else
+    started here), then up to DRYRUN_MEASURE records that fit run on the card.
+    Gates: every record has a status, counted flops > 0 where OK,
     measured peak <= the counted peak + 25%."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun
     from repro_torch.models.config import INPUT_SHAPES
 
-    os.makedirs(DRYRUN_OUT, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "src"))
-    t0 = time.perf_counter()
-    counting = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--measure", "0",
-         "--device", "cpu", "--out", DRYRUN_OUT],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        start_new_session=True)                     # its workers die with it
+    counting, t0 = count or start_dryrun_count()
     try:
-        log, _ = counting.communicate(timeout=900)
+        counting.wait(timeout=900)
     finally:
-        if counting.poll() is None:
-            os.killpg(counting.pid, signal.SIGKILL)
-            counting.wait()
+        stop(counting)
+    with open(DRYRUN_LOG) as fh:
+        log = fh.read()
     for line in log.splitlines():
         if not line.startswith("E1"):
             print(f"dryrun: {line.rstrip()}", flush=True)
     check(counting.returncode == 0, f"dryrun: the count exited with {counting.returncode}")
     print(f"dryrun: counted in {time.perf_counter() - t0:.1f} s on {os.cpu_count()} host "
-          f"cores", flush=True)
+          f"cores (from its start)", flush=True)
     records = []
     for arch in ARCHS:
         for shape in INPUT_SHAPES:
@@ -1979,6 +2011,8 @@ def phase_twin() -> dict:
     return {"flash_attention": 0, "decode_attention": 0}
 
 
+# the same run before cfg.remat was honoured (my chip runs, PR 19; H100 80GB HBM3, 700 W)
+PR19_TRAIN = "891-899 ms a step, 4,566-4,597 tokens/s, peak 49.14-50.14 GiB"
 TRAIN_ARGS = ["--arch", "llama3.2-1b", "--full", "--batch", "4", "--seq-len", "1024",
               "--lr", "3e-4", "--device", "cuda"]
 SDPA_BACKWARD = ("BmmBackward0", "SoftmaxBackward0", "MaskedFillBackward0", "DivBackward0")
@@ -2069,7 +2103,9 @@ def phase_train() -> dict:
           f"{[round(h['grad_norm'], 4) for h in hist]}; step ms "
           f"{[round(t * 1e3, 1) for t in out['walls']]}; {out['tokens_per_s']:.1f} tokens/s "
           f"after the first step; peak memory allocated {out['peak_gib']:.2f} GiB; every "
-          f"parameter changed after step 1", flush=True)
+          f"parameter changed after step 1; remat {ARCHS['llama3.2-1b'].remat} (each layer "
+          f"recomputed in the backward; PR 19 kept every layer's activations: "
+          f"{PR19_TRAIN})", flush=True)
     cfg = ARCHS["llama3.2-1b"]
     model, opt = out["model"], out["opt"]
     batch = {k: torch.from_numpy(v).cuda() for k, v in next(synthetic_lm_batches(
@@ -2104,7 +2140,8 @@ def phase_train() -> dict:
     cfg2 = cfg.replace(n_layers=2)
     g_model = model_api.init_model(0, cfg2, device="cuda")
     c_model = copy.deepcopy(g_model).cpu()
-    data = next(synthetic_lm_batches(vocab=cfg.vocab, seq_len=1024, batch=2, seed=0))
+    # batch 1 (2 through PR 23), to keep the script under 1100 s: S = 1024 still chunks the loss
+    data = next(synthetic_lm_batches(vocab=cfg.vocab, seq_len=1024, batch=1, seed=0))
     step2 = steps.make_train_step(cfg2, lr=3e-4)
     g_model, _, gm = step2(g_model, adamw_init(g_model),
                            {k: torch.from_numpy(v).cuda() for k, v in data.items()})
@@ -2116,7 +2153,7 @@ def phase_train() -> dict:
     gn_err = abs(float(gm["grad_norm"]) - float(cm["grad_norm"])) / float(cm["grad_norm"])
     p_err = max((g.detach().cpu() - c.detach()).abs().max().item() for g, c in
                 zip(g_model.parameters(), c_model.parameters(), strict=True))
-    print(f"train: one step card vs CPU (llama3.2-1b width, 2 layers, batch 2 x 1024, CPU "
+    print(f"train: one step card vs CPU (llama3.2-1b width, 2 layers, batch 1 x 1024, CPU "
           f"step {cpu_s:.1f} s): loss rel err {l_err:.3e} (tol 1e-5), grad_norm rel err "
           f"{gn_err:.3e} (tol 1e-4), params max abs err {p_err:.3e} (tol 1e-4)", flush=True)
     check(l_err < 1e-5, f"train: loss card vs CPU off by {l_err}")
@@ -2452,6 +2489,126 @@ def phase_mesh() -> dict:
                                                               "decode_attention")}
 
 
+MESH_TRAIN_OUT = "chiprun_out/mesh_train"
+MESH_TRAIN_SHAPE = (2, 2)
+# (arch, config overrides, batch, seq, steps, note): llama3.2-1b at published
+# width and depth; granite-moe at published width, depth cut to 4
+MESH_TRAIN = [("llama3.2-1b", {}, 4, 512, 2, "published width and depth"),
+              ("granite-moe-3b-a800m", {"n_layers": 4}, 4, 512, 1,
+               "published width, depth cut to 4 of 32 layers, MoE plans replayed")]
+# rel to max(1, max-abs); "near": elements where the one-rank step took a clipped
+# gradient within 100 eps of 0, held within 2 lr a step (AdamW's g / (|g| + eps)
+# maps the gradient's last bits there to a move of up to lr; tests/test_torch_train.py)
+TRAIN_TOLS = {"loss": 1e-5, "grad_norm": 1e-4, "params": 1e-4, "m": 1e-4, "v": 1e-4,
+              "near": 2 * 3e-4}
+
+
+def one_rank_reference(arch, overrides, batch, seq, n_steps) -> tuple[str, dict]:
+    """The one-rank train step on the card from seed 0 (parity.train_reference):
+    the last step's parameters and moments, and every step's loss and
+    grad_norm, written under MESH_TRAIN_OUT for the ranks to read their
+    blocks of; the card freed after. -> (the file, what to print)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import parity
+    from repro_torch.models import api
+
+    cfg = ARCHS[arch].replace(**overrides)
+    data = {k: torch.from_numpy(v).cuda()
+            for k, v in parity.numpy_lm_batch(1, cfg.vocab, batch, seq).items()}
+    model = api.init_model(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ref = parity.train_reference(cfg, model, data, steps=n_steps, grads=False,
+                                 keep=(n_steps - 1,))
+    info = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "n_params": sum(p.numel() for p in model.parameters()), "remat": cfg.remat,
+            "step_ms": [round(x * 1e3, 1) for x in ref["step_s"]]}
+    del model, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.makedirs(MESH_TRAIN_OUT, exist_ok=True)
+    path = os.path.join(MESH_TRAIN_OUT, f"{arch}_one_rank.pt")
+    t = time.perf_counter()
+    torch.save(ref, path)
+    info["save_s"] = time.perf_counter() - t
+    return path, info
+
+
+def phase_mesh_train() -> dict:
+    """The sharded train step on the card: each MESH_TRAIN model on a
+    (2, 2) mesh of four ranks sharing the card over gloo, with shard_h,
+    ZeRO-1 moments and the batch rows over "data", held against the
+    one-rank step on the card from the same seed: the one-rank runs go
+    first (one_rank_reference), then one launch of ranks runs every case
+    (parity.trains), each rank reading its blocks of the one-rank state
+    (mmap) within TRAIN_TOLS. Per rank: GiB of parameters, grads and
+    moments beside the rules' bytes, the peak, the step ms. Ranks sharing
+    one card over gloo check correctness: their times are not multi-card
+    speed (in a whole run the dry run's host count runs beside this
+    phase and the three before it). The step computes the reference's _sdpa
+    and launches no attention kernel."""
+    from repro_torch.cluster.executor import power_limit
+    from repro_torch.distributed import parity
+    from repro_torch.distributed.launch import run_on_mesh
+    from repro_torch.kernels import ops
+
+    before = ops.launch_counts()
+    card = f"{torch.cuda.get_device_name(0)}, {power_limit()}"
+    shape = MESH_TRAIN_SHAPE
+    paths, infos = [], []
+    for arch, over, batch, seq, n_steps, _ in MESH_TRAIN:
+        path, info = one_rank_reference(arch, over, batch, seq, n_steps)
+        paths.append(path)
+        infos.append(info)
+    cases = [(arch, over, dict(smoke=False, batch=batch, seq=seq, want=path,
+                                gather_moments=False))
+             for (arch, over, batch, seq, _, _), path in zip(MESH_TRAIN, paths, strict=True)]
+    t = time.perf_counter()
+    try:
+        ranks = run_on_mesh(parity.trains, shape, device="cuda", args=(cases,), timeout=900)
+    finally:
+        for path in paths:
+            os.remove(path)
+    wall = time.perf_counter() - t
+    gib = 2 ** 30
+    for i, (arch, _, batch, seq, n_steps, note) in enumerate(MESH_TRAIN):
+        for rank in ranks:
+            r = rank[i]
+            print(f"mesh_train: {arch} rank {r['rank']} of {shape} on {r['device']} ({card}) "
+                  f"over {r['backend']}: params {r['held']['params'] / gib:.3f} GiB (rules "
+                  f"{r['rule']['params'] / gib:.3f}), grads {r['held']['params'] / gib:.3f} GiB "
+                  f"(f32, a parameter block each), moments {r['held']['opt'] / gib:.3f} GiB "
+                  f"(rules {r['rule']['opt'] / gib:.3f}, ZeRO-1); peak allocated "
+                  f"{r['peak_bytes'] / gib:.2f} GiB; steps ms "
+                  f"{[round(x * 1e3, 1) for x in r['step_s']]}; errs "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in r["errs"].items())
+                  + f"; worst at {r['where']}; elements near a zero gradient "
+                  f"{r['near_counts']}", flush=True)
+            check(r["held"]["params"] == r["rule"]["params"] and
+                  r["held"]["opt"] == r["rule"]["opt"],
+                  f"mesh_train: rank {r['rank']} holds other bytes than the rules'")
+            check(r["finite"], f"mesh_train: rank {r['rank']} non-finite loss or grad_norm")
+            for k, v in r["errs"].items():
+                kind, step = k.rsplit("_", 1)
+                check(v <= TRAIN_TOLS[kind] * (int(step) if kind == "near" else 1),
+                      f"mesh_train: {arch} rank {r['rank']} {k} off by {v:.3e}")
+        info, r0 = infos[i], ranks[0][i]
+        slow = max(max(rank[i]["step_s"]) for rank in ranks) * 1e3
+        print(f"mesh_train: {arch} ({note}; {info['n_params']} parameters, f32, remat "
+              f"{info['remat']}), batch {batch} x {seq}, {n_steps} step(s) on {shape} with "
+              f"shard_h and ZeRO-1: losses {[round(m['loss'], 6) for m in r0['metrics']]} vs "
+              f"one rank {[round(m['loss'], 6) for m in r0['want_metrics']]}, grad_norm "
+              f"{[round(m['grad_norm'], 5) for m in r0['metrics']]}; slowest rank's step "
+              f"{slow:.1f} ms; one rank on the card: steps {info['step_ms']} ms, peak "
+              f"{info['peak_gib']:.2f} GiB; one-rank state written in {info['save_s']:.1f} s",
+              flush=True)
+    print(f"mesh_train: one launch of {len(ranks)} ranks for {len(MESH_TRAIN)} models: "
+          f"{wall:.1f} s", flush=True)
+    check(ops.launch_counts() == before,
+          f"mesh_train: the phase launched attention kernels {ops.launch_counts()}")
+    return {"flash_attention": 0, "decode_attention": 0}
+
+
 BENCH_OUT = "chiprun_out/bench_smoke"
 BENCH_ENVS = (1, 32)        # train_throughput's num_envs points (full: 1, 8, 32)
 BENCH_SECONDS = 300         # train_throughput's episode: 30 decisions (full: 1200 s)
@@ -2586,11 +2743,18 @@ def run_all(smi: str):
     calibrate_counts = timed("calibrate", phase_calibrate)
     families_counts = timed("families", phase_families)
     paper4_counts = timed("paper4", phase_paper4)
-    twin_counts = timed("twin", phase_twin)
-    train_counts = timed("train", phase_train)
-    figures_counts = timed("figures", phase_figures)
-    mesh_counts = timed("mesh", phase_mesh)
-    dryrun_counts = timed("dryrun", phase_dryrun)
+    # the dry run's host count (minutes of worker time) runs beside the next five
+    # phases: their gates read no clock but the figures' d_t (< 1 s, it takes ms)
+    count = start_dryrun_count()
+    try:
+        twin_counts = timed("twin", phase_twin)
+        train_counts = timed("train", phase_train)
+        figures_counts = timed("figures", phase_figures)
+        mesh_counts = timed("mesh", phase_mesh)
+        mesh_train_counts = timed("mesh_train", phase_mesh_train)
+        dryrun_counts = timed("dryrun", phase_dryrun, count)
+    finally:
+        stop(count[0])
     bench_counts = timed("bench", phase_bench)
 
     kernels = []
@@ -2599,13 +2763,14 @@ def run_all(smi: str):
                     + opd_counts[name] + forecast_counts[name] + calibrate_counts[name]
                     + families_counts[name] + paper4_counts[name] + twin_counts[name]
                     + train_counts[name] + figures_counts[name] + mesh_counts[name]
-                    + dryrun_counts[name] + bench_counts[name])
+                    + mesh_train_counts[name] + dryrun_counts[name] + bench_counts[name])
         print(f"launches {name}: serve {serve_counts[name]}, decode {decode_counts[name]}, "
               f"runtime {runtime_counts[name]}, opd {opd_counts[name]}, forecast "
               f"{forecast_counts[name]}, calibrate {calibrate_counts[name]}, families "
               f"{families_counts[name]}, paper4 {paper4_counts[name]}, twin "
               f"{twin_counts[name]}, train {train_counts[name]}, figures "
-              f"{figures_counts[name]}, mesh {mesh_counts[name]}, dryrun "
+              f"{figures_counts[name]}, mesh {mesh_counts[name]}, mesh_train "
+              f"{mesh_train_counts[name]}, dryrun "
               f"{dryrun_counts[name]}, bench "
               f"{bench_counts[name]}", flush=True)
         check(launches > 0, f"{name} never launched on the main path")
@@ -2629,7 +2794,8 @@ def run_all(smi: str):
 PHASES = {"runtime": phase_runtime, "opd": phase_opd, "forecast": phase_forecast,
           "calibrate": phase_calibrate, "families": phase_families, "paper4": phase_paper4,
           "twin": phase_twin, "train": phase_train, "figures": phase_figures,
-          "mesh": phase_mesh, "dryrun": phase_dryrun, "bench": phase_bench}
+          "mesh": phase_mesh, "mesh_train": phase_mesh_train, "dryrun": phase_dryrun,
+          "bench": phase_bench}
 
 
 if __name__ == "__main__":

@@ -11,7 +11,10 @@ last bits of the hidden state, which a row-parallel sum rounds otherwise),
 so the sharded run replays the one-rank run's dispatch plans
 (``moe_plans``), cut to the rank's batch rows. Errors are max |a - b| over
 max(1, max |b|). Rank 0 returns the results; the others return what they
-launched.
+launched. ``train`` holds the sharded train step so, every rank its own
+blocks of the gradients, parameters and moments; its one-rank run
+(``train_reference``) can also come from a file, where it is too large to
+repeat in every rank (the card's full-width models).
 """
 from __future__ import annotations
 
@@ -30,28 +33,40 @@ moe_mod = importlib.import_module("repro_torch.nn.moe")    # nn exports the func
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    """max |got - want| over max(1, max |want|)."""
-    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    """max |got - want| over max(1, max |want|), in float64 on ``got``'s
+    device."""
+    got = got.detach().double()
+    want = want.detach().to(got.device, torch.float64)
     return float((got - want).abs().max() / max(1.0, float(want.abs().max())))
 
 
 @contextlib.contextmanager
 def moe_plans(plans: list, replay: bool):
     """Record ``nn.moe._route``'s plans into ``plans`` or, with ``replay``,
-    hand them back in order instead of routing; a rank that routes a block
-    of the batch rows gets the plan's rows of its block."""
+    hand their choices back in order instead of choosing: each token's
+    top-k experts (from the recorded router probabilities) and each
+    expert's tokens, with the gates recomputed from this run's router, so
+    a replayed step differentiates through the router as the recorded one
+    does. A rank that routes a block of the batch rows gets the plan's
+    rows of its block."""
     route = moe_mod._route
     recorded = iter(list(plans))
 
     def planned(params, x, **kw):
         if not replay:
-            plans.append(route(params, x, **kw))
-            return plans[-1]
-        gsel, tok, probs, C = next(recorded)
-        if x.shape[0] != gsel.shape[0]:
+            plan = route(params, x, **kw)
+            plans.append(tuple(t.detach() if isinstance(t, torch.Tensor) else t
+                               for t in plan))
+            return plan
+        _, tok, probs, C = next(recorded)
+        if x.shape[0] != tok.shape[0]:
             axes = col.batch_axes()
-            gsel, tok, probs = (col.block(t, axes, 0) for t in (gsel, tok, probs))
-        return gsel, tok, probs, C
+            tok, probs = (col.block(t, axes, 0) for t in (tok, probs))
+        tok, probs = tok.to(x.device), probs.to(x.device)
+        now = moe_mod.router_probs(params, x)
+        _, top_e = moe_mod._top_k(probs, kw["top_k"])
+        gates = moe_mod.gates_of(now, top_e, kw["E_phys"])
+        return torch.gather(gates.transpose(1, 2), 2, tok), tok, now, C
 
     moe_mod._route = planned
     try:
@@ -125,7 +140,10 @@ def decoder(mesh, arch: str, *, smoke: bool = True, batch: int = 4, prompt: int 
     """A decoder-family model (f32, seed ``seed``; ``overrides`` replace
     fields of its config) on the one-rank path and
     sharded on ``mesh``: ``api.forward`` of a ``prompt``-token batch with
-    and without ``shard_h``, then ``steps`` teacher-forced ``decode_step``s
+    and without ``shard_h`` and ``make_prefill_step``'s last-position
+    logits (with the width of the logits its forward returned, a vocab
+    block where the ``lm_head`` is vocab-split), then ``steps``
+    teacher-forced ``decode_step``s
     over a cache of ``prompt`` slots (``ring``: a ring buffer whose writes
     start 3 slots before its end, so that they wrap). -> per rank: errors against the
     one-rank run (rank 0), the bytes the rank holds against the rules',
@@ -133,6 +151,7 @@ def decoder(mesh, arch: str, *, smoke: bool = True, batch: int = 4, prompt: int 
     ones."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import api
+    from repro_torch.models import steps as msteps
     from repro_torch.models.config import InputShape
     dev = mesh.device
     cfg = (ARCHS[arch].smoke() if smoke else ARCHS[arch]).replace(**(overrides or {}))
@@ -177,6 +196,13 @@ def decoder(mesh, arch: str, *, smoke: bool = True, batch: int = 4, prompt: int 
                 got, aux = api.forward(model, x, cfg, shard_h=shard_h)
             errs[name] = rel_err(col.gather(got, rows, 0), want_fwd)
             errs[name + "_lb_loss"] = abs(float(aux["lb_loss"]) - float(want_aux["lb_loss"]))
+        sh = shd.residual_constraint(cfg, pshape, mesh)
+        with moe_plans(fwd_plans, replay=True):
+            last, _ = msteps.make_prefill_step(cfg, shard_h=sh)(model, x)
+        with moe_plans(fwd_plans, replay=True):      # the logits the prefill step takes
+            width = msteps.decoder.forward(model, x, cfg, shard_h=sh, collect_cache=True,
+                                           vocab_block=True)[0].shape[-1]
+        errs["prefill_last"] = rel_err(col.gather(last, rows, 0), want_fwd[:, -1])
         got_dec = []
         with moe_plans(dec_plans, replay=True):
             for i in range(steps):
@@ -185,6 +211,7 @@ def decoder(mesh, arch: str, *, smoke: bool = True, batch: int = 4, prompt: int 
                 got_dec.append(col.gather(logits, rows, 0))
         errs["decode"] = max(rel_err(g, w) for g, w in zip(got_dec, want_dec, strict=True))
     out = {"rank": mesh.rank, "launches": ops.launch_counts(), "param_bytes": held,
+           "prefill_logits_width": width,
            "param_bytes_rule": rule, "cache_bytes": cache_held, "cache_bytes_rule": cache_rule,
            "finite": bool(all(torch.isfinite(t).all() for t in got_dec)),
            "blocks_err": _blocks_whole(model, full, specs, mesh)}
@@ -289,3 +316,248 @@ def numpy_moe(seed: int, d: int, f: int, E: int, shape) -> dict:
             "wu": (rng.standard_normal((E_phys, d, f)) / np.sqrt(d)).astype(np.float32),
             "wd": (rng.standard_normal((E_phys, f, d)) / np.sqrt(f)).astype(np.float32),
             "x": rng.standard_normal(shape).astype(np.float32)}
+
+
+def numpy_lm_batch(seed: int, vocab: int, batch: int, seq: int, *,
+                   uneven: bool = False) -> dict:
+    """Seeded NumPy tokens and labels [batch, seq] (int32). ``uneven``
+    masks labels (-100) unevenly over the rows: most of row 0, half of row
+    1, none below, so the data ranks hold different valid counts."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, (batch, seq)).astype(np.int32)
+    labels = rng.integers(0, vocab, (batch, seq)).astype(np.int32)
+    if uneven:
+        labels[0, 1:] = -100
+        labels[1, : seq // 2] = -100
+    return {"tokens": tokens, "labels": labels}
+
+
+NEAR_ZERO = 100 * 1e-8      # a clipped gradient this close to 0 (not 0) meets AdamW's eps
+
+
+def _state(model, opt, near) -> dict:
+    """The whole model's parameters and moments after a step, and where
+    some step's gradient lay within NEAR_ZERO of 0, on the CPU."""
+    def host(t):
+        return t.detach().to("cpu", copy=True)
+
+    return {"params": {n: host(p) for n, p in model.named_parameters()},
+            "m": {n: host(t) for n, t in opt["m"].items()},
+            "v": {n: host(t) for n, t in opt["v"].items()},
+            "near": {n: host(t) for n, t in near.items()}}
+
+
+def train_reference(cfg, model, batch: dict, *, steps: int = 2,
+                    microbatch: int | None = None, grads: bool = True,
+                    keep=None) -> dict:
+    """The one-rank train step on ``model`` (updated in place) for ``steps``
+    steps -> {"metrics": [{loss, grad_norm}] per step, "states": [params
+    and moments per step, on the CPU; None for a step not in ``keep``
+    (default: every step)], "grads": the first step's gradients (with
+    ``grads``), "plans": the MoE plans of the gradient step and of each
+    step, "step_s": each step's wall (synchronised on a card)}. A state's
+    "near" marks the elements where some step so far took a clipped
+    gradient within NEAR_ZERO of 0 but not 0: there AdamW's update
+    g / (|g| + eps) turns the gradient's last bits into a move of up to
+    ``lr``."""
+    from repro_torch.models import steps as msteps
+    from repro_torch.train import adamw_init
+    cuda = next(model.parameters()).device.type == "cuda"
+    out = {"metrics": [], "states": [], "plans": {"grads": [], "steps": []}, "step_s": []}
+    if grads:
+        with moe_plans(out["plans"]["grads"], replay=False):
+            _, _, g = msteps.make_grad_step(cfg, microbatch=microbatch)(model, batch)
+        out["grads"] = {n: t.cpu() for n, t in g.items()}
+        del g
+    step = msteps.make_train_step(cfg, microbatch=microbatch)
+    opt = adamw_init(model)
+    near = {n: torch.zeros_like(p, dtype=torch.bool) for n, p in model.named_parameters()}
+    for i in range(steps):
+        m_before = {n: t.clone() for n, t in opt["m"].items()}
+        plans = []
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with moe_plans(plans, replay=False):
+            model, opt, met = step(model, opt, batch)
+        if cuda:
+            torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["plans"]["steps"].append(plans)
+        out["metrics"].append({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])})
+        for n, m in opt["m"].items():       # the clipped gradient AdamW took: (m' - b1 m) / (1 - b1)
+            g = (m - 0.9 * m_before[n]) / 0.1
+            near[n] |= (g.abs() < NEAR_ZERO) & (g != 0)
+        del m_before
+        out["states"].append(_state(model, opt, near) if keep is None or i in keep else None)
+    return out
+
+
+def _worst(got: dict, want: dict, specs: dict, mesh, near: dict | None = None
+           ) -> tuple[float, str, float, int]:
+    """(largest ``rel_err`` of a rank's blocks against the rank's blocks of
+    the whole tensors, the name where it is, and, where ``near`` marks
+    elements, the largest absolute error there and their count: those are
+    left out of the first)."""
+    worst, where, worst_near, n_near = 0.0, "", 0.0, 0
+    for n, t in got.items():
+        t = t.detach()
+        w = shd.local_block(want[n], specs[n], mesh).to(t.device)
+        if near is not None:
+            mask = shd.local_block(near[n], specs[n], mesh).to(t.device)
+            k = int(mask.sum())
+            n_near += k
+            if k:
+                worst_near = max(worst_near, float((t.double() - w.double())[mask].abs().max()))
+                w = torch.where(mask, t.to(w.dtype), w)
+        e = rel_err(t, w)
+        if e > worst or not where:
+            worst, where = e, n
+    return worst, where, worst_near, n_near
+
+
+def _counted_as_100b(cfg):
+    """``cfg`` with ``param_count`` over 1e11: the rules' 100B+ layouts at
+    a small size."""
+    import dataclasses
+
+    class Counted(type(cfg)):
+        def param_count(self) -> float:
+            return 2e11
+
+    return Counted(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+
+
+def train(mesh, arch: str, *, smoke: bool = True, overrides: dict | None = None,
+          batch: int = 4, seq: int = 16, microbatch: int | None = None,
+          uneven: bool = False, carried: str | None = None, want: str | None = None,
+          gather_moments: bool = True, fsdp: bool = False):
+    """The train step sharded on ``mesh`` against the one-rank step from the
+    same weights: a model placed by ``sharding.place(kind="train")``, ZeRO-1
+    moments (``sharding.zero_layout``), the batch rows over the data axes
+    and the sequence-parallel residual stream, two steps at the train
+    step's learning rate. Weights: ``init_model(0)`` on every rank alike, or
+    ``carried`` (the path of a ``torch.save``d {"params": whole tensors by
+    name, "tokens", "labels"}); the batch then comes from there too, else
+    from ``numpy_lm_batch``. The one-rank run: ``train_reference`` in the
+    rank, or ``want`` (the path of its ``torch.save``d results, loaded
+    with ``mmap``: each rank reads its blocks). -> per rank: errors of its
+    gradient (one step, before clipping), parameter and moment blocks after
+    each step against the one-rank blocks, each relative to max(1, max
+    |one-rank|), with the parameter where each is largest; a parameter's
+    elements where the one-rank step took a gradient near 0 (the state's
+    "near", ``train_reference``) are held apart, by their absolute error
+    (``near_<step>``) and count; the loss and
+    ``grad_norm`` per step beside the one-rank ones; bytes held against
+    the rules'; its step times and (on a card) the peak it allocated over
+    the steps. ``fsdp`` counts the config as a 100B+ model, so the rules
+    split its experts' train blocks over "data" too (the FSDP blocks the
+    MoE gathers)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import api
+    from repro_torch.models import steps as msteps
+    from repro_torch.models.config import InputShape
+    from repro_torch.train import adamw_init
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    cfg = (ARCHS[arch].smoke() if smoke else ARCHS[arch]).replace(**(overrides or {}))
+    if fsdp:
+        cfg = _counted_as_100b(cfg)
+    model = api.init_model(0, cfg, device=dev)
+    if carried is not None:
+        src = torch.load(carried, map_location="cpu")
+        model.load_state_dict(src["params"], strict=True)
+        whole = {k: src[k] for k in ("tokens", "labels")}
+    else:
+        whole = {k: torch.from_numpy(v) for k, v in numpy_lm_batch(
+            1, cfg.vocab, batch, seq, uneven=uneven).items()}
+    whole = {k: v.to(dev) for k, v in whole.items()}
+    if want is None:
+        import copy
+        ref = train_reference(cfg, copy.deepcopy(model), whole, microbatch=microbatch)
+    else:
+        ref = torch.load(want, map_location="cpu", mmap=True)
+    shape = InputShape("train", whole["tokens"].shape[1], whole["tokens"].shape[0], "train")
+    multi_pod = "pod" in mesh.shape
+    model, _, placed = shd.place(model, mesh, cfg=cfg, kind="train", batch=whole,
+                                 multi_pod=multi_pod)
+    del whole
+    specs = shd.param_shardings(cfg, mesh, kind="train")
+    zero = shd.zero_layout(cfg, mesh)
+    mspecs = shd.opt_shardings(cfg, mesh, multi_pod=multi_pod)
+    opt = adamw_init(model, zero=zero)
+    abstract = shd.abstract_params(cfg)
+    rule = {"params": shd.tree_shard_bytes(abstract, specs, mesh),
+            "opt": 2 * sum(shd.shard_bytes(torch.empty(p.shape, dtype=torch.float32,
+                                                       device="meta"), mspecs[n], mesh)
+                           for n, p in abstract.items())}
+    held = {"params": sum(p.numel() * p.element_size() for p in model.parameters()),
+            "opt": sum(t.numel() * t.element_size() for k in ("m", "v")
+                       for t in opt[k].values())}
+    axes = shd.program_axes(cfg, shape, mesh, multi_pod=multi_pod)
+    sh = shd.residual_constraint(cfg, shape, mesh, multi_pod=multi_pod)
+    errs, metrics, where, walls, counts = {}, [], {}, [], {}
+    plans = ref.get("plans")
+
+    def replayed(kind, i=None):
+        if plans is None:                   # the one-rank run's routing is not at hand
+            return contextlib.nullcontext()
+        return moe_plans(plans[kind] if i is None else plans[kind][i], replay=True)
+
+    with col.use_mesh(mesh, **axes):
+        if "grads" in ref:
+            with replayed("grads"):
+                _, _, grads = msteps.make_grad_step(cfg, shard_h=sh, microbatch=microbatch)(
+                    model, placed)
+            held["grads"] = sum(g.numel() * g.element_size() for g in grads.values())
+            errs["grads"], where["grads"], _, _ = _worst(grads, ref["grads"], specs, mesh)
+            del grads
+        step = msteps.make_train_step(cfg, shard_h=sh, microbatch=microbatch)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(len(ref["metrics"])):
+            if cuda:
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with replayed("steps", i):
+                model, opt, met = step(model, opt, placed)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+            metrics.append({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])})
+            state = ref["states"][i]
+            if state is None:                   # the one-rank run kept only later steps
+                continue
+            got = dict(model.named_parameters())
+            (errs[f"params_{i + 1}"], where[f"params_{i + 1}"], errs[f"near_{i + 1}"],
+             counts[f"near_{i + 1}"]) = _worst(got, state["params"], specs, mesh,
+                                               state.get("near"))
+            for k in ("m", "v"):
+                errs[f"{k}_{i + 1}"], where[f"{k}_{i + 1}"], _, _ = _worst(
+                    opt[k], state[k], mspecs, mesh)
+        if gather_moments:
+            worst = 0.0
+            for k in ("m", "v"):
+                for n, t in opt[k].items():
+                    for dim, entry in enumerate(mspecs[n]):
+                        if shd._axes(entry):
+                            t = col.gather(t, shd._axes(entry), dim)
+                    worst = max(worst, rel_err(t, ref["states"][-1][k][n]))
+            errs["moments_gathered"] = worst
+    want_metrics = ref["metrics"]
+    for i, (g, w) in enumerate(zip(metrics, want_metrics, strict=True)):
+        for k in ("loss", "grad_norm"):
+            errs[f"{k}_{i + 1}"] = abs(g[k] - w[k]) / max(1.0, abs(w[k]))
+    return {"rank": mesh.rank, "backend": mesh.backend, "device": str(dev), "errs": errs,
+            "where": where, "near_counts": counts, "metrics": metrics,
+            "want_metrics": want_metrics, "held": held,
+            "rule": rule, "step_s": walls,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
+            "finite": all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                          for m in metrics)}
+
+
+def trains(mesh, cases: list[tuple[str, dict, dict]]) -> list[dict]:
+    """``train`` for each (arch, overrides, keywords) of ``cases`` in one
+    launch."""
+    return [train(mesh, arch, overrides=over, **kw) for arch, over, kw in cases]

@@ -53,8 +53,12 @@ def replicated(mesh) -> tuple:
 def abstract_params(cfg: ArchConfig) -> dict[str, torch.Tensor]:
     """The port's parameters of ``cfg`` by name, as fake tensors (shape and
     dtype, no storage): the model is built under ``FakeTensorMode``, so no
-    device memory is touched and no random number drawn for real."""
-    with FakeTensorMode():
+    device memory is touched and no random number drawn for real. The
+    dispatch modes around the call are set aside while it builds, so a
+    step that asks the rules (the sharded train step) adds nothing to a
+    counter it runs under (``launch/step_cost.py``)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes(), FakeTensorMode():
         model = api.init_model(0, cfg, device="cpu")
     return dict(model.named_parameters())
 
@@ -244,6 +248,30 @@ def opt_shardings(cfg: ArchConfig, mesh, *, multi_pod: bool = False,
                     spec[i] = _entry(free_dp)
                     break
         out[name] = tuple(spec) if _divides(p.shape, spec, mesh) else (None,) * p.dim()
+    return out
+
+
+def split_axes(specs: dict[str, tuple]) -> dict[str, tuple[str, ...]]:
+    """Entries per name -> every axis the tensor's block is split over."""
+    return {n: tuple(a for e in spec for a in _axes(e)) for n, spec in specs.items()}
+
+
+def zero_layout(cfg: ArchConfig, mesh, *, params: dict | None = None) -> dict:
+    """ZeRO-1 on ``mesh``: the AdamW moments ``opt_shardings`` lays out,
+    as ``train.adamw_init``'s ``zero``: name -> (dim, axes, parts) for
+    every moment that splits a dim its parameter's train block holds
+    whole, over ``axes`` into ``parts`` blocks. A rank's moments are then
+    its ``opt_shardings`` blocks: their bytes are ``resident_bytes["opt"]``."""
+    multi_pod = "pod" in mesh.shape
+    params = abstract_params(cfg) if params is None else params
+    base = param_shardings(cfg, mesh, multi_pod=multi_pod, kind="train", params=params)
+    moments = opt_shardings(cfg, mesh, multi_pod=multi_pod, params=params)
+    out = {}
+    for name, spec in moments.items():
+        for dim, (p_entry, m_entry) in enumerate(zip(base[name], spec, strict=True)):
+            if p_entry is None and m_entry is not None:
+                axes = _axes(m_entry)
+                out[name] = (dim, axes, mesh.span(axes))
     return out
 
 

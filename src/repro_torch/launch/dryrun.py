@@ -29,18 +29,21 @@ draw), on the card's (1, 1) mesh, and counted:
 ``--both-meshes`` counts on 16 x 16 ("data", "model") and 2 x 16 x 16
 ("pod", "data", "model") H100s instead (``--multi-pod``: the latter
 alone), the reference's production meshes. For the decoder families' (dense
-and moe) prefill and decode records, rank 0's sharded program runs on fake
-tensors under a fake process group of the mesh's size
+and moe) records, rank 0's sharded program runs on fake tensors under a
+fake process group of the mesh's size
 (``torch.testing._internal.distributed.fake_pg``): every parameter, cache
-and batch tensor is placed as the rules place it (``sharding.place``), the
-prefill carries the sequence-parallel ``shard_h``, and the counters above
-count per device, with the bytes each collective moves
+and batch tensor is placed as the rules place it (``sharding.place``),
+the prefill and the train step carry the sequence-parallel ``shard_h``,
+the train step's AdamW moments are ZeRO-1 blocks (``sharding.zero_layout``,
+the reference's ``opt_shardings``) and its layers are rematerialised as
+the config says, and the counters above count per device, with the bytes
+each collective moves, the backward's and the update's included
 (``distributed.collectives.counting``). ``collective_s`` sums, over the
 groups the program reduces in, their bytes over the bandwidth of the
 slowest link the group spans (``LINKS``: ranks are numbered row-major with
 "model" innermost, ``NODE`` cards to an HGX node). The other families'
-records and ``train_4k`` carry the rules' resident bytes per device and
-say why their collective term is not there yet (``RULES_ONLY``).
+records carry the rules' resident bytes per device and say why their
+collective term is not there yet (``RULES_ONLY``).
 
 A record is ``OK`` when its counted peak fits a card's 80 GB,
 ``DOES_NOT_FIT`` (with the counted bytes) when it does not, or ``SKIP``
@@ -233,10 +236,14 @@ def _count_once_mesh(cfg, shape, mesh_name: str) -> dict:
             step, args, _ = build_step(cfg, shape, "cpu")
             model, cache, batch = shd.place(
                 args[0], mesh, cfg=cfg, kind=shape.kind, multi_pod=multi_pod,
-                cache=args[2] if shape.kind == "decode" else None, batch=args[1])
-            if shape.kind == "prefill":
-                step = steps.make_prefill_step(cfg, shard_h=shd.residual_constraint(
-                    cfg, shape, mesh, multi_pod=multi_pod))
+                cache=args[2] if shape.kind == "decode" else None,
+                batch=args[2] if shape.kind == "train" else args[1])
+            shard_h = shd.residual_constraint(cfg, shape, mesh, multi_pod=multi_pod)
+            if shape.kind == "train":
+                step = steps.make_train_step(cfg, shard_h=shard_h)
+                args = (model, adamw_init(model, zero=shd.zero_layout(cfg, mesh)), batch)
+            elif shape.kind == "prefill":
+                step = steps.make_prefill_step(cfg, shard_h=shard_h)
                 args = (model, batch)
             else:
                 args = (model, batch, cache)
@@ -313,8 +320,6 @@ def _direct(cfg, direct: bool) -> bool:
 
 def sharded_program(cfg, shape) -> str | None:
     """None when a mesh record runs the sharded program, else why not."""
-    if shape.kind == "train":
-        return "not yet: train sharded program not ported"
     if cfg.family not in shd.SHARDED_FAMILIES:
         return f"not yet: {cfg.family} sharded program not ported"
     return None
@@ -416,7 +421,10 @@ def count(arch: str, shape_name: str, *, smoke: bool = False, direct: bool = Fal
         coll_s, groups = collective_term(counted, mesh)
         terms["collective_s"] = coll_s
         coll = {"collective": {"counted_by": "distributed.collectives.counting: ring "
-                                             "all_reduce, 2(g-1)/g x bytes per device",
+                                             "all_reduce, 2(g-1)/g x bytes per device, "
+                                             "forward and backward; a gather is the "
+                                             "all_reduce the program issues, of the "
+                                             "whole zero-filled buffer",
                                "groups": groups}}
     fits = counted["peak_bytes"] <= HBM_BYTES
     return {

@@ -15,7 +15,15 @@ the layers run the sharded program: column/row-parallel attention, MLP and
 ``lm_head``, expert-parallel MoE, a vocab- or width-split embedding, and,
 with ``shard_h``, the sequence-parallel residual stream, whose block each
 layer gathers before it attends. The logits come back whole for the
-rank's batch rows.
+rank's batch rows, or, with ``vocab_block``, as the rank's block of a
+vocab-split ``lm_head`` (the train step's loss and the prefill's last
+position take it so). Under grad every collective carries its transpose
+(``distributed.collectives``), so the sharded program differentiates to
+the one-rank program's gradients.
+
+With ``cfg.remat`` and grad enabled each entry of ``layers`` (its body
+with ``shard_h``, as the reference's checkpointed scan body) runs under
+``models.remat.layer``: its activations are recomputed in the backward.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from torch import nn
 from repro_torch import nn as rnn
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as col
+from repro_torch.models import remat
 from repro_torch.models.config import ArchConfig
 
 
@@ -129,12 +138,13 @@ def embed_inputs(params: DecoderLM, batch, cfg: ArchConfig):
     return h
 
 
-def lm_head(params: DecoderLM, h, cfg: ArchConfig):
+def lm_head(params: DecoderLM, h, cfg: ArchConfig, *, vocab_block: bool = False):
     """Logits [..., vocab] from a rank's whole ``lm_head`` or its block:
-    vocab columns (gathered) or d_model rows (summed over "model")."""
+    vocab columns (gathered; with ``vocab_block`` the rank's [..., V/M]
+    block is returned as is) or d_model rows (summed over "model")."""
     if params.lm_head.w.shape[0] < cfg.d_model:
         return rnn.linear_rows(params.lm_head, h, cfg.d_model)
-    return rnn.linear_cols(params.lm_head, h, cfg.vocab)
+    return rnn.linear_cols(params.lm_head, h, cfg.vocab, gather=not vocab_block)
 
 
 def _zero_aux(device):
@@ -148,7 +158,7 @@ def _mean_aux(auxs: list[dict]) -> dict:
 
 def forward(params: DecoderLM, batch, cfg: ArchConfig, *, window=None,
             shard_h=None, collect_cache: bool = False, last_only: bool = False,
-            return_hidden: bool = False, sdpa: bool = False):
+            return_hidden: bool = False, sdpa: bool = False, vocab_block: bool = False):
     """Full-sequence forward -> (logits, aux[, cache]). ``last_only``
     computes logits for the final position only. aux is the mean over
     layers (and over an interleave block's sub-layers first, as the
@@ -158,15 +168,18 @@ def forward(params: DecoderLM, batch, cfg: ArchConfig, *, window=None,
     .residual_constraint``) is applied to the residual stream after every
     entry of ``layers``, as the reference's scan body does; under a running
     mesh it keeps the rank's block of the sequence, which the next layer
-    gathers. ``cfg.remat`` is a training concern the eager program does
-    not need. A collected cache is laid out as the cache rule places it."""
+    gathers. With ``cfg.remat`` and grad enabled each entry of ``layers``
+    is recomputed in the backward (module docstring). ``vocab_block``
+    returns a vocab-split ``lm_head``'s block of the logits ungathered. A
+    collected cache is laid out as the cache rule places it."""
     h = embed_inputs(params, batch, cfg)
     B, S_total = h.shape[:2]
     _, norm = _norm_fns(cfg)
     ks, vs, auxs = [], [], []
     dense_aux = _zero_aux(h.device)
-    for lp in params.layers:
-        sub_aux = []
+
+    def body(lp, h):
+        sub_aux, sub_k, sub_v = [], [], []
         for sp, use_moe in _sub_layers(cfg, lp):
             if h.shape[1] != S_total:                     # a sequence block: gather it
                 h = col.gather(h, "model", 1)
@@ -184,11 +197,18 @@ def forward(params: DecoderLM, batch, cfg: ArchConfig, *, window=None,
             h = h + m
             sub_aux.append(aux)
             if collect_cache:
-                ks.append(k)
-                vs.append(v)
-        auxs.append(sub_aux[0] if len(sub_aux) == 1 else _mean_aux(sub_aux))
+                sub_k.append(k)
+                sub_v.append(v)
+        aux = sub_aux[0] if len(sub_aux) == 1 else _mean_aux(sub_aux)
         if shard_h is not None:
             h = shard_h(h)
+        return h, aux, sub_k, sub_v
+
+    for lp in params.layers:
+        h, aux, sub_k, sub_v = remat.layer(cfg, body, lp, h)
+        auxs.append(aux)
+        ks.extend(sub_k)
+        vs.extend(sub_v)
     if h.shape[1] != S_total:
         h = col.gather(h, "model", 1)
     if last_only:
@@ -197,7 +217,7 @@ def forward(params: DecoderLM, batch, cfg: ArchConfig, *, window=None,
     aux = _mean_aux(auxs)
     if return_hidden:
         return h, aux
-    logits = lm_head(params, h, cfg)
+    logits = lm_head(params, h, cfg, vocab_block=vocab_block)
     if collect_cache:
         k, v = torch.stack(ks), torch.stack(vs)
         if k.shape[3] != cfg.n_kv:                      # the cache holds every kv head

@@ -5,8 +5,11 @@ The abstract specs are ``meta`` tensors (shape and dtype, no storage), the
 counterpart of the reference's ``jax.ShapeDtypeStruct``s."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.distributed import collectives as col
 from repro_torch.models import api, decoder, whisper
 from repro_torch.models.config import LONG_WINDOW, ArchConfig, InputShape
 from repro_torch.train import adamw_update, chunked_lm_head_loss, clip_by_global_norm
@@ -76,38 +79,53 @@ def uses_ring(cfg: ArchConfig, shape: InputShape) -> bool:
 
 # --------------------------------------------------------------- steps ----
 
-def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, shard_h=None,
-                    microbatch: int | None = None):
-    """(model, opt_state, batch) -> (model, opt_state, metrics).
+LB_COEFF = 0.01         # the MoE lb_loss's weight in the loss (the reference's default)
 
-    The loss is ``chunked_lm_head_loss`` over ``api.forward(...,
-    return_hidden=True)`` with the MoE ``lb_loss`` folded in; attention is
-    the reference's ``use_flash=False`` computation (``sdpa=True``), which
-    the reference trains through on every backend. Every parameter is
-    differentiated, clipped to global norm 1.0 and AdamW-decayed, as the
-    reference does for every leaf: the step turns grad on for the model's
-    parameters while it runs and restores their flags after. ``microbatch``
-    = number of gradient-accumulation chunks along the batch (f32 grads
-    summed in chunk order, divided at the end; the metrics are the last
-    chunk's), so only one chunk's activations are live at a time. The
-    model is updated in place."""
 
+def split_axes(cfg: ArchConfig, mesh) -> dict[str, tuple[str, ...]]:
+    """name -> the axes each parameter's train block is split over on
+    ``mesh`` (``distributed.sharding``'s rules)."""
+    return _split_axes(cfg, mesh.axis_names, mesh.sizes)
+
+
+@functools.cache
+def _split_axes(cfg: ArchConfig, axis_names: tuple, sizes: tuple) -> dict:
+    # imported here: the rules read this module's specs
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(sizes, axis_names, "meta")
+    return shd.split_axes(shd.param_shardings(cfg, mesh, kind="train"))
+
+
+def make_grad_step(cfg: ArchConfig, *, shard_h=None, microbatch: int | None = None):
+    """(model, batch) -> (loss, metrics, grads): the train step up to its
+    gradients, before clipping (``make_train_step``). On a running mesh
+    each gradient is the rank's block of the whole batch's gradient: the
+    rank's own is summed over the batch axes, except where the parameter's
+    block is itself split over one of them (the 100B+ experts' FSDP
+    blocks, whose sum the gather's backward made), and ``loss`` and the
+    metrics are the global ones."""
     def loss_fn(model, batch):
         # labels are [B, S_total]; vision positions carry -100, so a VLM's
         # prefix is ignored by the loss
         h, aux = api.forward(model, batch, cfg, shard_h=shard_h, return_hidden=True,
                              sdpa=True)
-        return chunked_lm_head_loss(model.lm_head, h, batch["labels"],
-                                    lb_loss=aux["lb_loss"])
+        obj, metrics = chunked_lm_head_loss(model.lm_head, h, batch["labels"],
+                                            lb_loss=aux["lb_loss"], lb_coeff=LB_COEFF,
+                                            vocab=cfg.vocab)
+        # on a mesh ``obj`` is the rank's term; the metrics hold the global loss
+        value = obj if col.current_mesh() is None else (
+            metrics["ce_loss"] + LB_COEFF * aux["lb_loss"])
+        return obj, value, metrics
 
     def grads_of(model, names, params, batch):
         with torch.enable_grad():
-            loss, metrics = loss_fn(model, batch)
-            grads = torch.autograd.grad(loss, params)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, dict(
+            obj, value, metrics = loss_fn(model, batch)
+            grads = torch.autograd.grad(obj, params)
+        return value.detach(), {k: v.detach() for k, v in metrics.items()}, dict(
             zip(names, grads, strict=True))
 
-    def train_step(model, opt_state, batch):
+    def grad_step(model, batch):
         names = [n for n, _ in model.named_parameters()]
         params = list(model.parameters())
         flags = [p.requires_grad for p in params]
@@ -134,7 +152,56 @@ def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, shard_h=None,
         finally:
             for p, flag in zip(params, flags, strict=True):
                 p.requires_grad_(flag)
-        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        rows = col.batch_axes()
+        if rows:
+            split = split_axes(cfg, col.current_mesh())
+            grads = {k: g if set(split[k]) & set(rows) else col.psum(g, rows)
+                     for k, g in grads.items()}
+        return loss, metrics, grads
+
+    return grad_step
+
+
+def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, shard_h=None,
+                    microbatch: int | None = None):
+    """(model, opt_state, batch) -> (model, opt_state, metrics).
+
+    The loss is ``chunked_lm_head_loss`` over ``api.forward(...,
+    return_hidden=True)`` with the MoE ``lb_loss`` folded in; attention is
+    the reference's ``use_flash=False`` computation (``sdpa=True``), which
+    the reference trains through on every backend. With ``cfg.remat`` each
+    layer's activations are recomputed in the backward (``models.remat``).
+    Every parameter is differentiated, clipped to global norm 1.0 and
+    AdamW-decayed, as the reference does for every leaf: the step turns
+    grad on for the model's parameters while it runs and restores their
+    flags after. ``microbatch`` = number of gradient-accumulation chunks
+    along the (rank's) batch (f32 grads summed in chunk order, divided at
+    the end; the metrics are the last chunk's), so only one chunk's
+    activations are live at a time. The model is updated in place.
+
+    On a running mesh (inside ``collectives.use_mesh`` with
+    ``sharding.program_axes``) it is the sharded program over the rank's
+    blocks, as the reference's dry run compiles it: a model placed by
+    ``sharding.place(kind="train")``, ZeRO-1 moments
+    (``adamw_init(model, zero=sharding.zero_layout(...))``), the rank's
+    batch rows and ``shard_h = sharding.residual_constraint(...)``. It
+    computes the one-rank step's function: the gradients are summed over
+    the batch axes once (after the microbatches), the norm is the whole
+    gradient's (``clip_by_global_norm(split=)``), and each rank updates its
+    moments' block of every parameter, then gathers it. No gradient needs a
+    sum over "model" for ``shard_h``: each layer gathers the sequence block
+    before any parameter touches it, so norms and biases act on the whole
+    sequence on every rank, and the collectives' transposes make the rest. With microbatches,
+    microbatch i is every data rank's i-th chunk of its rows, normalised by
+    its own global count: the one-rank step's when each chunk holds as many
+    valid labels as the one-rank microbatch it stands for."""
+    grad_step = make_grad_step(cfg, shard_h=shard_h, microbatch=microbatch)
+
+    def train_step(model, opt_state, batch):
+        loss, metrics, grads = grad_step(model, batch)
+        mesh = col.current_mesh()
+        split = None if mesh is None else split_axes(cfg, mesh)
+        grads, gnorm = clip_by_global_norm(grads, 1.0, split=split)
         model, opt_state = adamw_update(model, grads, opt_state, lr=lr)
         return model, opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
 
@@ -145,7 +212,9 @@ def make_prefill_step(cfg: ArchConfig, *, shard_h=None):
     """(model, batch) -> (last-token logits, populated cache or aux): the
     decoder families collect their KV cache, whisper prefills its
     cross-attention cache, and the ssm and hybrid families run the forward
-    only and return its aux, as the reference does."""
+    only and return its aux, as the reference does. A rank holding a vocab
+    block of the ``lm_head`` keeps its logits split until the last position
+    is taken, and gathers that position alone."""
 
     def prefill_step(params, batch):
         if cfg.family == "audio":
@@ -154,8 +223,11 @@ def make_prefill_step(cfg: ArchConfig, *, shard_h=None):
             return logits[:, -1], cache
         if cfg.family in ("dense", "moe", "vlm"):
             logits, _, cache = decoder.forward(params, batch, cfg, shard_h=shard_h,
-                                               collect_cache=True)
-            return logits[:, -1], cache
+                                               collect_cache=True, vocab_block=True)
+            last = logits[:, -1]
+            if last.shape[-1] != cfg.vocab:
+                last = col.gather(last, "model", -1)
+            return last, cache
         logits, aux = api.forward(params, batch, cfg, shard_h=shard_h)
         return logits[:, -1], aux
 

@@ -18,6 +18,7 @@ from torch import nn
 
 from repro_torch import nn as rnn
 from repro_torch.device import resolve_device
+from repro_torch.models import remat
 from repro_torch.models.config import ArchConfig
 from repro_torch.nn.attention import _sdpa
 
@@ -87,14 +88,17 @@ def forward(params: Whisper, batch, cfg: ArchConfig, *, window=None, shard_h=Non
             last_only: bool = False, return_hidden: bool = False, sdpa: bool = False):
     """Teacher-forced decode over a full target sequence. batch: tokens
     [B, S], enc_states [B, enc_len, d]. ``sdpa`` goes to the
-    self-attention's ``attention_prefill``; ``shard_h`` and ``cfg.remat``
-    are accepted and ignored."""
+    self-attention's ``attention_prefill``; ``shard_h`` is accepted and
+    ignored. With ``cfg.remat`` and grad enabled each layer is recomputed
+    in the backward (``models.remat``), as the reference checkpoints its
+    scan body."""
     tokens = batch["tokens"]
     enc = batch["enc_states"].to(cfg.param_dtype)
     B, S = tokens.shape
     pos_ids = torch.arange(S, device=tokens.device) % MAX_POSITIONS
     h = rnn.embedding(params.embed, tokens) + rnn.embedding(params.pos, pos_ids)[None]
-    for lp in params.layers:
+
+    def body(lp, h):
         a, _ = rnn.attention_prefill(
             lp.self_attn, rnn.layernorm(lp.ln_self, h),
             n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
@@ -102,7 +106,10 @@ def forward(params: Whisper, batch, cfg: ArchConfig, *, window=None, shard_h=Non
         h = h + a
         ck, cv = _cross_kv(lp, enc, cfg)
         h = h + _cross_apply(lp, rnn.layernorm(lp.ln_cross, h), ck, cv, cfg)
-        h = h + rnn.mlp(lp.mlp, rnn.layernorm(lp.ln_mlp, h), kind="gelu")
+        return h + rnn.mlp(lp.mlp, rnn.layernorm(lp.ln_mlp, h), kind="gelu")
+
+    for lp in params.layers:
+        h = remat.layer(cfg, body, lp, h)
     if last_only:
         h = h[:, -1:]
     h = rnn.layernorm(params.ln_f, h)

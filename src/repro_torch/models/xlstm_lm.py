@@ -12,6 +12,7 @@ from torch import nn
 
 from repro_torch import nn as rnn
 from repro_torch.device import resolve_device
+from repro_torch.models import remat
 from repro_torch.models.config import ArchConfig
 
 
@@ -63,17 +64,21 @@ def _aux(h):
 
 def forward(params: XLSTMLM, batch, cfg: ArchConfig, *, window=None, shard_h=None,
             last_only: bool = False, return_hidden: bool = False, sdpa: bool = False):
-    """tokens [B, S] -> (logits, aux). ``window``, ``shard_h``, ``sdpa``
-    (no attention here) and ``cfg.remat`` are accepted and ignored, as the
-    dense family does."""
+    """tokens [B, S] -> (logits, aux). ``window``, ``shard_h`` and ``sdpa``
+    (no attention here) are accepted and ignored, as the dense family
+    does. With ``cfg.remat`` and grad enabled each layer is recomputed in
+    the backward (``models.remat``), as the reference checkpoints it."""
     h = rnn.embedding(params.embed, batch["tokens"])
-    for i, lp in enumerate(params.layers):
+
+    def body(i, lp, h):
         x = rnn.rmsnorm(lp.ln, h)
         if is_slstm(cfg, i):
-            h = h + rnn.slstm_scan(lp.slstm, x, n_heads=cfg.n_heads)
-        else:
-            # chunkwise form: O(S*chunk) memory instead of O(S^2)
-            h = h + rnn.mlstm_chunkwise(lp.mlstm, x, n_heads=cfg.n_heads)
+            return h + rnn.slstm_scan(lp.slstm, x, n_heads=cfg.n_heads)
+        # chunkwise form: O(S*chunk) memory instead of O(S^2)
+        return h + rnn.mlstm_chunkwise(lp.mlstm, x, n_heads=cfg.n_heads)
+
+    for i, lp in enumerate(params.layers):
+        h = remat.layer(cfg, body, i, lp, h)
     if last_only:
         h = h[:, -1:]
     h = rnn.rmsnorm(params.ln_f, h)

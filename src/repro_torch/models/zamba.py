@@ -19,6 +19,7 @@ from torch import nn
 
 from repro_torch import nn as rnn
 from repro_torch.device import resolve_device
+from repro_torch.models import remat
 from repro_torch.models.config import ArchConfig
 from repro_torch.nn.mamba2 import CONV_K
 
@@ -92,14 +93,21 @@ def _shared_block(sp: SharedBlock, h, cfg: ArchConfig, *, window=None, sdpa=Fals
 def forward(params: Zamba, batch, cfg: ArchConfig, *, window=None, shard_h=None,
             last_only: bool = False, return_hidden: bool = False, sdpa: bool = False):
     """tokens [B, S] -> (logits, aux); aux is zero (no MoE). ``sdpa`` goes
-    to the shared block's ``attention_prefill``; ``shard_h`` and
-    ``cfg.remat`` are accepted and ignored."""
+    to the shared block's ``attention_prefill``; ``shard_h`` is accepted
+    and ignored. With ``cfg.remat`` and grad enabled each group (the shared
+    block and its mamba layers) is recomputed in the backward
+    (``models.remat``), as the reference checkpoints its group body."""
     h = rnn.embedding(params.embed, batch["tokens"])
-    for group in params.mamba_layers:
+
+    def body(group, h):
         h = _shared_block(params.shared, h, cfg, window=window, sdpa=sdpa)
         for lp in group:
             h = h + rnn.mamba2_scan(lp.mamba, rnn.rmsnorm(lp.ln, h),
                                     n_heads=cfg.n_heads, d_state=cfg.ssm_state)
+        return h
+
+    for group in params.mamba_layers:
+        h = remat.layer(cfg, body, group, h)
     if last_only:
         h = h[:, -1:]
     h = rnn.rmsnorm(params.ln_f, h)

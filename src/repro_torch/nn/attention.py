@@ -35,7 +35,7 @@ from torch import nn
 from repro_torch.distributed import collectives as col
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.nn.linear import Linear, linear, linear_rows
+from repro_torch.nn.linear import Linear, linear, linear_rows, linear_shared
 from repro_torch.nn.rope import apply_rope, rope_frequencies
 
 
@@ -53,11 +53,18 @@ class Attention(nn.Module):
 
 def _qkv(params: Attention, x, n_heads: int, n_kv: int, head_dim: int):
     """q [B, S, Hq, hd], k/v [B, S, Hk, hd]: Hq and Hk are the heads this
-    rank's ``wq`` and ``wk`` hold (all of them off a mesh)."""
+    rank's ``wq`` and ``wk`` hold (all of them off a mesh). A rank holding
+    a block of the query heads takes ``x`` through ``collectives.copy``,
+    and whole ``wk``/``wv`` (kv heads that do not divide) through
+    ``linear_shared``: each rank uses them for its own heads."""
     B, S, _ = x.shape
+    split = params.wq.w.shape[1] < n_heads * head_dim
+    if split:
+        x = col.copy(x, "model")
+    kv = (linear_shared if split and params.wk.w.shape[1] == n_kv * head_dim else linear)
     q = linear(params.wq, x).reshape(B, S, -1, head_dim)
-    k = linear(params.wk, x).reshape(B, S, -1, head_dim)
-    v = linear(params.wv, x).reshape(B, S, -1, head_dim)
+    k = kv(params.wk, x).reshape(B, S, -1, head_dim)
+    v = kv(params.wv, x).reshape(B, S, -1, head_dim)
     return q, k, v
 
 

@@ -11,6 +11,12 @@ row parallel): it multiplies the matching block of the input and sums the
 partial products over "model" before the bias. ``embedding`` looks up a
 vocab block (rows of ``e``) or a width block (columns) and returns the
 whole embedding. Weights held whole take the single-device path.
+
+Under grad the collectives carry their transposes
+(``distributed.collectives``): a column block's input passes through
+``copy`` (its gradient is summed over "model"), the row block's partial
+products through ``psum``, and ``linear_shared`` applies a whole weight
+that each rank of "model" uses for its own heads.
 """
 from __future__ import annotations
 
@@ -67,11 +73,24 @@ def linear_rows(params: Linear, x, in_dim: int):
     return y
 
 
-def linear_cols(params: Linear, x, out_dim: int):
+def linear_cols(params: Linear, x, out_dim: int, *, gather: bool = True):
     """``linear`` whose ``out_dim`` columns may be this rank's block over
-    "model"; the blocks are gathered into the whole output."""
-    y = linear(params, x)
-    return y if y.shape[-1] == out_dim else col.gather(y, "model", -1)
+    "model"; the blocks are gathered into the whole output (or, with
+    ``gather=False``, the rank's block of it is returned)."""
+    if params.w.shape[1] == out_dim:
+        return linear(params, x)
+    y = linear(params, col.copy(x, "model"))
+    return col.gather(y, "model", -1) if gather else y
+
+
+def linear_shared(params: Linear, x):
+    """``linear`` of a whole weight that each rank of "model" applies in its
+    own way (the kv heads a rank's query block uses): its gradient is
+    summed over "model"."""
+    y = x @ col.copy(params.w, "model").to(x.dtype)
+    if params.b is not None:
+        y = y + col.copy(params.b, "model").to(x.dtype)
+    return y
 
 
 class Embedding(nn.Module):

@@ -3,13 +3,16 @@
 The GELU is the tanh approximation, as ``jax.nn.gelu``'s default; torch's
 default exact GELU would not match the reference. Under a running mesh
 the up projections may hold a column block of d_ff and the down
-projection the matching row block (``linear_rows`` sums over "model")."""
+projection the matching row block (``linear_rows`` sums over "model");
+the input then passes through ``collectives.copy``, so its gradient is
+summed over "model"."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import collectives as col
 from repro_torch.nn.linear import Linear, linear, linear_rows
 
 
@@ -34,6 +37,9 @@ class MLP(nn.Module):
 
 
 def mlp(params: MLP, x, *, kind: str = "swiglu"):
+    up = params.wg if kind == "swiglu" else params.w1
+    if up.w.shape[1] < params.hidden:           # a column block of d_ff
+        x = col.copy(x, "model")
     if kind == "swiglu":
         g = linear(params.wg, x)
         u = linear(params.wu, x)

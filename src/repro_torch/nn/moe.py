@@ -24,7 +24,10 @@ shapes, and runs the reference's ``shard_map`` bodies:
     then ``psum`` over "model".
 
 The aux loss is the reference's over the whole batch: its sums are added
-over the batch axes.
+over the batch axes. Under grad the tokens and gates enter the rank's
+experts through ``collectives.copy`` and the FSDP blocks' gather is
+followed by one over the batch axes, so every gradient, the router's
+included, is the one-rank program's (``distributed.collectives``).
 
 Experts >= 16 are padded to a multiple of 16 (``_phys_experts``), as the
 reference lays its leaves out; the router stays at the logical E, so a
@@ -94,20 +97,33 @@ def _top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _route(params: MoE, x, *, top_k: int, capacity_factor: float, E_phys: int):
-    """Router + per-(row, expert) top-C dispatch plan -> gsel/tok_idx
-    [B, E_phys, C], probs [B, S, E] and C. Gates come from a one-hot sum over
-    the k choices, as in the reference."""
-    B, S, _ = x.shape
-    E = params.router.w.shape[1]
+def router_probs(params: MoE, x):
+    """The router's softmax [B, S, E] over the logical experts, in f32."""
     logits = torch.einsum("bsd,de->bse", x.to(torch.float32),
                           params.router.w.to(torch.float32))
-    probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = _top_k(probs, top_k)                                   # [B,S,k]
+    return torch.softmax(logits, dim=-1)
+
+
+def gates_of(probs, top_e, E_phys: int):
+    """Gates [B, S, E_phys]: each token's ``top_e`` [B, S, k] choices
+    weighted by their renormalised probabilities (a one-hot sum over the k
+    choices, as in the reference)."""
+    top_p = torch.gather(probs, -1, top_e)
     top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
-    experts = torch.arange(E_phys, device=x.device)
+    experts = torch.arange(E_phys, device=probs.device)
     onehot = top_e[..., None] == experts                                  # [B,S,k,E+]
-    gates = torch.einsum("bsk,bske->bse", top_p, onehot.to(torch.float32))
+    return torch.einsum("bsk,bske->bse", top_p, onehot.to(torch.float32))
+
+
+def _route(params: MoE, x, *, top_k: int, capacity_factor: float, E_phys: int):
+    """Router + per-(row, expert) top-C dispatch plan -> gsel/tok_idx
+    [B, E_phys, C], probs [B, S, E] and C. ``gsel`` and ``probs`` carry the
+    router's gradient; the choices (``top_e``, ``tok_idx``) take none."""
+    S = x.shape[1]
+    E = params.router.w.shape[1]
+    probs = router_probs(params, x)
+    _, top_e = _top_k(probs, top_k)                                       # [B,S,k]
+    gates = gates_of(probs, top_e, E_phys)
     C = max(1, min(S, int(capacity_factor * S * top_k / E)))
     gsel, tok_idx = _top_k(gates.transpose(1, 2), C)                      # [B,E+,C]
     return gsel, tok_idx, probs, C
@@ -187,16 +203,20 @@ def moe(params: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
     bax = col.batch_axes()
     two_d = ep2d and wg.shape[0] < E_phys and wg.shape[2] < params.hidden
     if wg.shape[1] < x.shape[-1]:            # FSDP blocks of a 100B+ train/prefill
-        wg, wu = col.gather(wg, "data", 1), col.gather(wu, "data", 1)
-        wd = col.gather(wd, "data", 1)
+        # each data rank applies the whole experts to its own rows: the
+        # gradient is summed over the batch axes, then blocked
+        wg, wu, wd = (col.copy(col.gather(w_, "data", 1), bax) for w_ in (wg, wu, wd))
     xr = col.gather(x, bax, 0) if two_d and bax else x
     gsel, tok_idx, probs, _ = _route(params, xr, top_k=top_k,
                                      capacity_factor=capacity_factor, E_phys=E_phys)
     El = wg.shape[0]
     e0 = col.index("model") * El if El < E_phys else 0
-    y = _dispatch_compute_combine(xr, gsel[:, e0:e0 + El], tok_idx[:, e0:e0 + El],
-                                  wg, wu, wd)
-    y = col.psum(y, ("model", "data") if two_d else "model")
+    group = ("model", "data") if two_d else "model"
+    # the rank's experts (or d_ff block) use the tokens and gates in their
+    # own way: both pass through copy, so their gradients sum over the group
+    y = _dispatch_compute_combine(col.copy(xr, group), col.copy(gsel, group)[:, e0:e0 + El],
+                                  tok_idx[:, e0:e0 + El], wg, wu, wd)
+    y = col.psum(y, group)
     if two_d and bax:
         y = col.block(y, bax, 0)
     aux = None

@@ -10,8 +10,9 @@ smoke widths, against the reference and against the one-rank program.
     not divide 4; and granite-moe with a vocab that does not divide, whose
     embedding and lm_head split the width; and llama3.2-1b decoding into a
     ring-buffer cache that wraps) on (1, 4), (2, 2) and (2, 4):
-    ``forward`` with and without ``shard_h`` and 8 ``decode_step``s equal
-    the one-rank run (MoE plans replayed), the bytes each rank holds equal
+    ``forward`` with and without ``shard_h``, ``make_prefill_step``'s last
+    position (the logits vocab-split until then) and 8 ``decode_step``s
+    equal the one-rank run (MoE plans replayed), the bytes each rank holds equal
     the rules', and the blocks rebuild the whole parameters;
   * the decode kernel's plain version's log-sum-exp output, an all-masked
     row included, against a float64 softmax;
@@ -201,8 +202,9 @@ def _closed_form(arch: str, shape_name: str, M: int, dp: int) -> float:
     H, Hkv, D, es = cfg.n_heads, cfg.n_kv, cfg.head_dim, 2
     if shp.kind == "prefill":
         # embedding, each layer's wo and mlp sums, L sequence gathers (layers
-        # 1.. and the last), the vocab-split logits, the cache's k/v heads
-        n = B * S * d * es * (1 + 2 * L + L) + B * S * V * es + 2 * L * B * S * Hkv * D * es
+        # 1.. and the last), the last position's vocab-split logits (the
+        # rest stay split), the cache's k/v heads
+        n = B * S * d * es * (1 + 2 * L + L) + B * V * es + 2 * L * B * S * Hkv * D * es
     else:
         # embedding, per layer: q, k, v gathers, lse max, (out, weight) sum,
         # wo and mlp sums; the logits
@@ -227,13 +229,37 @@ def test_dryrun_counts_collectives_on_fake_8_rank_group(shape_name):
 
 
 def test_dryrun_names_why_a_term_is_missing():
-    assert dryrun.count("zamba2-2.7b", "decode_32k", smoke=True, mesh="2x4")["roofline"][
-        "collective"] == "not yet: hybrid sharded program not ported"
-    rec = dryrun.count("llama3.2-1b", "train_4k", smoke=True, mesh="2x4")
-    assert rec["status"] == "RULES_ONLY" and rec["roofline"]["collective_s"] is None
-    assert rec["reason"] == "not yet: train sharded program not ported"
+    """A family without a sharded program keeps the rules' bytes and says
+    why its collective term is missing, for its train and decode records
+    alike; the decoder families' train records are counted."""
+    for shape_name in ("train_4k", "decode_32k"):
+        rec = dryrun.count("zamba2-2.7b", shape_name, smoke=True, mesh="2x4")
+        assert rec["status"] == "RULES_ONLY" and rec["roofline"]["collective_s"] is None
+        assert rec["reason"] == rec["roofline"]["collective"] == (
+            "not yet: hybrid sharded program not ported")
+        assert rec["resident_bytes"]["params"] > 0
+    assert "opt" in dryrun.count("whisper-small", "train_4k", smoke=True,
+                                 mesh="2x4")["resident_bytes"]
+    assert dryrun.sharded_program(dryrun.arch_config("llama3.2-1b", smoke=True),
+                                  dryrun.INPUT_SHAPES["train_4k"]) is None
     assert dryrun.link_of("16x16", ("model",)) == "ib"
     assert dryrun.link_of("2x4", ("data", "model")) == "nvlink"
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_prefill_keeps_logits_vocab_split(case):
+    """make_prefill_step on the mesh: the forward's logits stay the rank's
+    vocab block (V / M wide where the lm_head is vocab-split) until the
+    last position is taken, and that position equals the one-rank one."""
+    shape, i = case
+    arch, over, _ = ARCH_CASES[shape][i]
+    cfg = ARCHS[arch].smoke().replace(**over)
+    M = shape[1]
+    res = mesh_run(shape)
+    assert res[0][i]["errs"]["prefill_last"] <= TOL
+    for r in res:
+        assert r[i]["prefill_logits_width"] == (cfg.vocab // M if cfg.vocab % M == 0
+                                                else cfg.vocab)
 
 
 def test_a_failing_rank_fails_the_launch():
