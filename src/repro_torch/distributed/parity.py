@@ -28,6 +28,7 @@ import torch
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
+from repro_torch.launch import step_cost
 
 moe_mod = importlib.import_module("repro_torch.nn.moe")    # nn exports the function ``moe``
 
@@ -134,21 +135,52 @@ def _blocks_whole(model, full: dict, specs: dict, mesh) -> float:
     return worst
 
 
+def _tree_err(got, want) -> float:
+    """The largest ``rel_err`` over the matching tensors of two nests."""
+    if isinstance(got, dict):
+        return max(_tree_err(got[k], want[k]) for k in got)
+    if isinstance(got, (list, tuple)):
+        return max(_tree_err(g, w) for g, w in zip(got, want, strict=True))
+    return rel_err(got, want)
+
+
+def extra_inputs(cfg, batch: int, gen: torch.Generator, device) -> dict:
+    """A prefill batch's inputs besides the tokens, drawn from ``gen``: the
+    vlm's projected patches ``vision_embeds`` [B, P, d], the audio family's
+    encoder frames ``enc_states`` [B, enc_len, d] (unit normal, f32)."""
+    if cfg.family == "vlm":
+        return {"vision_embeds": torch.randn(batch, cfg.n_patches, cfg.d_model,
+                                             generator=gen).to(device)}
+    if cfg.family == "audio":
+        return {"enc_states": torch.randn(batch, cfg.enc_len, cfg.d_model,
+                                          generator=gen).to(device)}
+    return {}
+
+
+def prompt_len(cfg, tokens: int) -> int:
+    """Positions a prefill of ``tokens`` tokens runs over: the vlm's patches
+    and its tokens."""
+    return tokens + (cfg.n_patches if cfg.family == "vlm" else 0)
+
+
 def decoder(mesh, arch: str, *, smoke: bool = True, batch: int = 4, prompt: int = 16,
             steps: int = 8, seed: int = 0, overrides: dict | None = None,
             ring: bool = False):
-    """A decoder-family model (f32, seed ``seed``; ``overrides`` replace
-    fields of its config) on the one-rank path and
-    sharded on ``mesh``: ``api.forward`` of a ``prompt``-token batch with
-    and without ``shard_h`` and ``make_prefill_step``'s last-position
-    logits (with the width of the logits its forward returned, a vocab
-    block where the ``lm_head`` is vocab-split), then ``steps``
-    teacher-forced ``decode_step``s
-    over a cache of ``prompt`` slots (``ring``: a ring buffer whose writes
-    start 3 slots before its end, so that they wrap). -> per rank: errors against the
-    one-rank run (rank 0), the bytes the rank holds against the rules',
-    and the parameters rebuilt from every rank's blocks against the whole
-    ones."""
+    """A model of any family (f32, seed ``seed``; ``overrides`` replace
+    fields of its config) on the one-rank path and sharded on ``mesh``:
+    ``api.forward`` of a ``prompt``-token batch (with its
+    ``extra_inputs``) with and without ``shard_h``, and
+    ``make_prefill_step``'s last-position logits (with the width of the
+    logits its forward returned, a vocab block where the ``lm_head`` is
+    vocab-split) and what it returns beside them (the rank's block of the
+    collected or cross-attention cache against the one-rank cache's block,
+    or the aux), then ``steps`` teacher-forced ``decode_step``s over a
+    cache of ``prompt`` slots (the audio family's: the prefill's, so that
+    the cross-attention reads the encoder; ``ring``: a ring buffer whose
+    writes start 3 slots before its end, so that they wrap). -> per rank:
+    errors against the one-rank run (rank 0), the bytes the rank holds
+    against the rules', and the parameters rebuilt from every rank's
+    blocks against the whole ones."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import api
     from repro_torch.models import steps as msteps
@@ -158,29 +190,33 @@ def decoder(mesh, arch: str, *, smoke: bool = True, batch: int = 4, prompt: int 
     gen = torch.Generator().manual_seed(seed + 1)
     tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen).to(dev)
     fed = torch.randint(0, cfg.vocab, (steps, batch, 1), generator=gen).to(dev)
+    whole = {"tokens": tokens, **extra_inputs(cfg, batch, gen, dev)}
+    audio = cfg.family == "audio"
     model = api.init_model(seed, cfg, device=dev)
     full = {n: p.detach().clone() for n, p in model.named_parameters()}
     fwd_plans, dec_plans = [], []
     with torch.inference_mode():
         with moe_plans(fwd_plans, replay=False):
-            want_fwd, want_aux = api.forward(model, {"tokens": tokens}, cfg)
-        cache = _start(api.init_cache(cfg, batch, prompt, device=dev), ring)
+            want_fwd, want_aux = api.forward(model, whole, cfg)
+        want_pre = msteps.make_prefill_step(cfg)(model, whole)[1]
+        cache = (msteps.whisper.prefill_cache(model, whole, cfg, prompt) if audio else
+                 _start(api.init_cache(cfg, batch, prompt, device=dev), ring))
         want_dec = []
         with moe_plans(dec_plans, replay=False):
             for i in range(steps):
                 logits, cache = api.decode_step(model, {"tokens": fed[i]}, cache, cfg,
                                                 ring=ring)
                 want_dec.append(logits)
-    pshape = InputShape("prompt", prompt, batch, "prefill")
+    S = prompt_len(cfg, prompt)
+    pshape = InputShape("prompt", S, batch, "prefill")
     dshape = InputShape("decode", prompt, batch, "decode")
     model, cache, _ = shd.place(model, mesh, cfg=cfg, kind="decode",
-                                cache=_start(api.init_cache(cfg, batch, prompt, device=dev),
-                                             ring))
+                                cache=None if audio else _start(
+                                    api.init_cache(cfg, batch, prompt, device=dev), ring))
     abstract = shd.abstract_params(cfg)
     specs = shd.param_shardings(cfg, mesh, kind="decode", params=abstract)
     held = sum(p.numel() * p.element_size() for p in model.parameters())
     rule = shd.tree_shard_bytes(abstract, specs, mesh)
-    cache_held = sum(t.numel() * t.element_size() for t in cache.values())
     cache_rule = shd.tree_shard_bytes(
         shd.abstract_cache(cfg, dshape),
         shd.cache_shardings(cfg, dshape, mesh), mesh)
@@ -189,7 +225,7 @@ def decoder(mesh, arch: str, *, smoke: bool = True, batch: int = 4, prompt: int 
     ops.reset_launch_counts()
     errs = {}
     with torch.inference_mode(), col.use_mesh(mesh, **axes):
-        x = {"tokens": _local_rows(tokens, rows, mesh)}
+        x = {k: _local_rows(v, rows, mesh) for k, v in whole.items()}
         for name, shard_h in (("forward", None),
                               ("forward_shard_h", shd.residual_constraint(cfg, pshape, mesh))):
             with moe_plans(fwd_plans, replay=True):
@@ -198,11 +234,20 @@ def decoder(mesh, arch: str, *, smoke: bool = True, batch: int = 4, prompt: int 
             errs[name + "_lb_loss"] = abs(float(aux["lb_loss"]) - float(want_aux["lb_loss"]))
         sh = shd.residual_constraint(cfg, pshape, mesh)
         with moe_plans(fwd_plans, replay=True):
-            last, _ = msteps.make_prefill_step(cfg, shard_h=sh)(model, x)
+            last, pre = msteps.make_prefill_step(cfg, shard_h=sh)(model, x)
         with moe_plans(fwd_plans, replay=True):      # the logits the prefill step takes
-            width = msteps.decoder.forward(model, x, cfg, shard_h=sh, collect_cache=True,
-                                           vocab_block=True)[0].shape[-1]
+            width = api.forward(model, x, cfg, shard_h=sh, vocab_block=True)[0].shape[-1]
         errs["prefill_last"] = rel_err(col.gather(last, rows, 0), want_fwd[:, -1])
+        if "pos" in want_pre:                        # a cache: the rank's block of it
+            cshape = InputShape("prefilled", S, batch, "decode")
+            want_blocks = shd._blocks(want_pre, shd.cache_shardings(
+                cfg, cshape, mesh, cache=want_pre), mesh, dev)
+            errs["prefill_cache"] = _tree_err(pre, want_blocks)
+        else:
+            errs["prefill_aux"] = max(abs(float(pre[k]) - float(want_pre[k])) for k in pre)
+        if audio:                                    # decode reads the prefill's cache
+            cache = pre
+        cache_held = sum(step_cost.nbytes(t) for t in step_cost.tensors(cache))
         got_dec = []
         with moe_plans(dec_plans, replay=True):
             for i in range(steps):
@@ -233,49 +278,211 @@ def decoders(mesh, cases: list[tuple[str, dict, dict]]) -> list[dict]:
     return [decoder(mesh, arch, overrides=over, **kw) for arch, over, kw in cases]
 
 
-def stage(mesh, arch: str, *, batch: int = 4, steps: int = 8, prompt: int = 32,
-          seq_len: int = 32, smoke: bool = False):
-    """``cluster.executor.StageExecutor`` on ``mesh`` against the one-rank
-    executor, f32 weights (``quant="f32"``) from seed 0 on both:
-    ``steps`` teacher-forced decode steps of
-    its compiled serving step at ``batch`` (cache of ``seq_len`` slots),
-    then one ``prompt``-token ``api.forward`` with ``shard_h``; every
-    rank's flash and decode launches in the sharded run, the slowest
-    rank's step time (``StageExecutor.measure``), the rank's weight bytes.
-    -> per rank a dict; rank 0's holds the errors."""
-    from repro_torch.cluster.executor import StageExecutor
-    from repro_torch.models import api, steps as msteps
+def carried(mesh, path: str) -> dict | None:
+    """The sharded program of a smoke model with carried weights and inputs
+    (``path``: a ``torch.save``d {"arch", "overrides", "params" (whole
+    tensors by name), "batch" (whole prefill inputs), "fed" [steps, B, 1],
+    "context"}): ``api.forward`` with ``shard_h``, then ``len(fed)``
+    teacher-forced decode steps over a cache of ``context`` slots (the
+    audio family's from its sharded ``prefill_cache``). -> rank 0: both
+    logits, rows gathered, as NumPy arrays; the other ranks: None."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import api, whisper
     from repro_torch.models.config import InputShape
-    dev, quant = mesh.device, "f32"
-    one = StageExecutor(dev, seq_len=seq_len, smoke=smoke)
-    cfg = one.arch_config(arch)
+    dev = mesh.device
+    src = torch.load(path, map_location="cpu")
+    cfg = ARCHS[src["arch"]].smoke().replace(**src["overrides"])
+    model = api.init_model(0, cfg, device=dev)
+    model.load_state_dict(src["params"], strict=True)
+    whole = {k: v.to(dev) for k, v in src["batch"].items()}
+    fed, C = src["fed"].to(dev), src["context"]
+    B, S = whole["tokens"].shape
+    audio = cfg.family == "audio"
+    model, cache, _ = shd.place(model, mesh, cfg=cfg, kind="decode",
+                                cache=None if audio else api.init_cache(cfg, B, C, device=dev))
+    axes = shd.program_axes(cfg, InputShape("decode", C, B, "decode"), mesh)
+    rows = axes["batch_axes"]
+    sh = shd.residual_constraint(cfg, InputShape("prompt", prompt_len(cfg, S), B, "prefill"),
+                                 mesh)
+    with torch.inference_mode(), col.use_mesh(mesh, **axes):
+        x = {k: _local_rows(v, rows, mesh) for k, v in whole.items()}
+        fwd = col.gather(api.forward(model, x, cfg, shard_h=sh)[0], rows, 0)
+        if audio:
+            cache = whisper.prefill_cache(model, x, cfg, C)
+        dec = []
+        for t in fed:
+            logits, cache = api.decode_step(model, {"tokens": _local_rows(t, rows, mesh)},
+                                            cache, cfg)
+            dec.append(col.gather(logits, rows, 0))
+    if mesh.rank:
+        return None
+    return {"forward": fwd.cpu().numpy(), "decode": torch.stack(dec).cpu().numpy()}
+
+
+@contextlib.contextmanager
+def lse_calls(counter: dict):
+    """Count, in ``counter["lse"]``, the calls of the decode kernel's
+    entry point that ask for its log-sum-exp (the decode merged across
+    ranks; each such call on a CUDA tensor is one launch)."""
+    fn = ops.decode_attention
+
+    def counted(*args, **kw):
+        if kw.get("return_lse"):
+            counter["lse"] += 1
+        return fn(*args, **kw)
+
+    ops.decode_attention = counted
+    try:
+        yield counter
+    finally:
+        ops.decode_attention = fn
+
+
+def _fill_cross(cache: dict, seed: int = 8) -> None:
+    """Encoder keys and values (unit normal from ``seed``) in an audio
+    cache's whole ``ck``/``cv``, so that its decode's cross-attention reads
+    them."""
+    gen = torch.Generator().manual_seed(seed)
+    for k in ("ck", "cv"):
+        if k in cache:
+            cache[k].copy_(torch.randn(cache[k].shape, generator=gen).to(cache[k]))
+
+
+def _executor(dev, *, seq_len: int, smoke: bool, overrides: dict | None, **kw):
+    """A ``StageExecutor`` whose configs take ``overrides`` (a cut depth)."""
+    from repro_torch.cluster.executor import StageExecutor
+    ex = StageExecutor(dev, seq_len=seq_len, smoke=smoke, **kw)
+    if overrides:
+        base = ex.arch_config
+        ex.arch_config = lambda a: base(a).replace(**overrides)
+    return ex
+
+
+def _stage_inputs(cfg, batch: int, steps: int, prompt: int, dev):
+    """``stage``'s inputs, drawn from seed 7: the fed decode tokens [steps,
+    batch, 1] and the prefill batch (``prompt`` tokens and the family's
+    ``extra_inputs``)."""
     gen = torch.Generator().manual_seed(7)
     fed = torch.randint(0, cfg.vocab, (steps, batch, 1), generator=gen).to(dev)
     tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen).to(dev)
+    return fed, {"tokens": tokens, **extra_inputs(cfg, batch, gen, dev)}
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route ``kernels.ops``' attention to the kernels' plain versions on
+    every device: a precision check's float64 runs, which no kernel takes.
+    Nothing on the serving path uses this."""
+    from repro_torch.kernels import ref
+    saved = ops.flash_attention, ops.decode_attention
+    ops.flash_attention, ops.decode_attention = (ref.flash_attention_ref,
+                                                 ref.decode_attention_ref)
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.decode_attention = saved
+
+
+def precision(mesh, arch: str, *, batch: int = 4, steps: int = 8, prompt: int = 32,
+              seq_len: int = 32, smoke: bool = False, overrides: dict | None = None):
+    """How far f32 rounding alone moves ``stage``'s prefill (the same seed-0
+    weights and inputs, ``api.forward`` with ``shard_h`` on the mesh):
+    the one-rank f32 forward through the kernels and through their plain
+    versions, the same weights in float64 (plain attention: no kernel takes
+    float64) one-rank and sharded, and the sharded f32 forward again. ->
+    rank 0: each run's distance (``rel_err``) from the one-rank float64
+    run, the two one-rank f32 runs' from each other, and the sharded runs'
+    from the one-rank run of their dtype; the other ranks: None. Not for the
+    audio family, whose config's dtype casts the encoder states."""
+    from repro_torch.models import api
+    from repro_torch.models.config import InputShape
+    dev = mesh.device
+    one = _executor(dev, seq_len=seq_len, smoke=smoke, overrides=overrides)
+    cfg = one.arch_config(arch)
+    _, whole = _stage_inputs(cfg, batch, steps, prompt, dev)
+    dshape = InputShape(f"serve_b{batch}", seq_len, batch, "decode")
+    axes = shd.program_axes(cfg, dshape, mesh)
+    rows = axes["batch_axes"]
+    sh = shd.residual_constraint(cfg, InputShape("prompt", prompt_len(cfg, prompt), batch,
+                                                 "prefill"), mesh)
+
+    def wide(batch_in):
+        return {k: v.double() if v.is_floating_point() else v for k, v in batch_in.items()}
+
+    def sharded(model, batch_in):
+        with col.use_mesh(mesh, **axes):
+            x = {k: _local_rows(v, rows, mesh) for k, v in batch_in.items()}
+            return col.gather(api.forward(model, x, cfg, shard_h=sh)[0], rows, 0)
+
+    with torch.inference_mode():
+        model = one.params_for(arch, "f32")
+        f32 = api.forward(model, whole, cfg)[0]
+        with plain_attention():
+            f32_plain = api.forward(model, whole, cfg)[0]
+            model.double()                        # in place: f32 -> f64 is exact
+            f64 = api.forward(model, wide(whole), cfg)[0]
+            model, _, _ = shd.place(model, mesh, cfg=cfg, kind="decode")
+            f64_sharded = sharded(model, wide(whole))
+        model.float()                             # back to the f32 weights, exactly
+        f32_sharded = sharded(model, whole)
+    if mesh.rank:
+        return None
+    return {"one_f32_vs_f64": rel_err(f32, f64), "one_f32_plain_vs_f64": rel_err(f32_plain, f64),
+            "one_f32_vs_plain": rel_err(f32, f32_plain),
+            "sharded_f32_vs_f64": rel_err(f32_sharded, f64),
+            "sharded_f64_vs_one_f64": rel_err(f64_sharded, f64),
+            "sharded_f32_vs_one_f32": rel_err(f32_sharded, f32)}
+
+
+def stage(mesh, arch: str, *, batch: int = 4, steps: int = 8, prompt: int = 32,
+          seq_len: int = 32, smoke: bool = False, overrides: dict | None = None):
+    """``cluster.executor.StageExecutor`` on ``mesh`` against the one-rank
+    executor, f32 weights (``quant="f32"``) from seed 0 on both:
+    ``steps`` teacher-forced decode steps of its compiled serving step at
+    ``batch`` (cache of ``seq_len`` slots; the audio family's cross-
+    attention cache filled from a seed), then one ``prompt``-token
+    ``api.forward`` with ``shard_h`` (and the family's ``extra_inputs``: a
+    vlm's patches come before the tokens); every rank's flash and decode
+    launches in the sharded run (the decode calls with lse beside them),
+    the slowest rank's step time (``StageExecutor.measure``), the rank's
+    weight bytes. ``overrides`` replace fields of the config on both (a
+    cut depth). -> per rank a dict; rank 0's holds the errors."""
+    from repro_torch.models import api, steps as msteps
+    from repro_torch.models.config import InputShape
+    dev, quant = mesh.device, "f32"
+
+    def executor(**kw):
+        return _executor(dev, seq_len=seq_len, smoke=smoke, overrides=overrides, **kw)
+
+    one = executor()
+    cfg = one.arch_config(arch)
+    fed, whole = _stage_inputs(cfg, batch, steps, prompt, dev)
     dshape = InputShape(f"serve_b{batch}", seq_len, batch, "decode")
     step = msteps.make_serve_step(cfg, dshape)
     dec_plans, fwd_plans = [], []
     with torch.inference_mode():
         model = one.params_for(arch, quant)
         _, cache = one._inputs(cfg, dshape)
+        _fill_cross(cache)
         want_dec = []
         with moe_plans(dec_plans, replay=False):
             for i in range(steps):
                 logits, cache = step(model, {"tokens": fed[i]}, cache)
                 want_dec.append(logits.cpu())
         with moe_plans(fwd_plans, replay=False):
-            want_fwd = api.forward(model, {"tokens": tokens}, cfg)[0].cpu()
+            want_fwd = api.forward(model, whole, cfg)[0].cpu()
     del model, cache, one
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    ex = StageExecutor(dev, seq_len=seq_len, smoke=smoke, mesh=mesh)
+    ex = executor(mesh=mesh)
     entry, _ = ex.compiled_step(arch, batch, quant)
     rows = entry.axes["batch_axes"]
     ops.reset_launch_counts()
-    errs = {}
-    with torch.inference_mode(), col.use_mesh(mesh, **entry.axes):
-        cache = {k: v.zero_() for k, v in entry.cache.items()}
+    errs, lse = {}, {"lse": 0}
+    with torch.inference_mode(), col.use_mesh(mesh, **entry.axes), lse_calls(lse):
+        _, cache = ex._inputs(cfg, dshape)          # a fresh cache, placed
+        _fill_cross(cache)
         got = []
         with moe_plans(dec_plans, replay=True):
             for i in range(steps):
@@ -284,9 +491,10 @@ def stage(mesh, arch: str, *, batch: int = 4, steps: int = 8, prompt: int = 32,
                 got.append(col.gather(logits, rows, 0).cpu())
         dec_launches = ops.launch_counts()
         errs["decode"] = max(rel_err(g, w) for g, w in zip(got, want_dec, strict=True))
-        pshape = InputShape("prompt", prompt, batch, "prefill")
+        pshape = InputShape("prompt", prompt_len(cfg, prompt), batch, "prefill")
         with moe_plans(fwd_plans, replay=True):
-            logits, _ = api.forward(entry.model, {"tokens": _local_rows(tokens, rows, mesh)},
+            logits, _ = api.forward(entry.model, {k: _local_rows(v, rows, mesh)
+                                                  for k, v in whole.items()},
                                     cfg, shard_h=shd.residual_constraint(cfg, pshape, mesh))
         errs["forward_shard_h"] = rel_err(col.gather(logits, rows, 0), want_fwd)
     launches = ops.launch_counts()
@@ -295,7 +503,8 @@ def stage(mesh, arch: str, *, batch: int = 4, steps: int = 8, prompt: int = 32,
     t0 = time.perf_counter()
     timing = ex.measure(arch, batch, quant, reps=3, warmup=1)
     out = {"rank": mesh.rank, "backend": mesh.backend, "device": str(dev),
-           "launches": launches, "decode_launches": dec_launches,
+           "launches": launches, "decode_launches": dec_launches, "lse_calls": lse["lse"],
+           "cache_axes": list(entry.axes["cache_axes"]),
            "weight_gib": sum(p.numel() * p.element_size()
                              for p in entry.model.parameters()) / 2 ** 30,
            "step_ms": timing.latency_s * 1e3, "measure_s": time.perf_counter() - t0,
@@ -303,6 +512,18 @@ def stage(mesh, arch: str, *, batch: int = 4, steps: int = 8, prompt: int = 32,
            "cache_key_mesh": list(ex.key_for(arch, batch, quant).mesh)}
     if mesh.rank == 0:
         out["errs"] = errs
+    return out
+
+
+def stages(mesh, cases: list[tuple[str, dict, dict]]) -> list[dict]:
+    """``stage`` for each (arch, overrides, keywords) of ``cases`` in one
+    launch (the models one after another: a rank frees each before the
+    next)."""
+    out = []
+    for arch, over, kw in cases:
+        out.append(stage(mesh, arch, overrides=over or None, **kw))
+        if mesh.device.type == "cuda":
+            torch.cuda.empty_cache()
     return out
 
 

@@ -377,7 +377,7 @@ def program_axes(cfg: ArchConfig, shape: InputShape, mesh, *,
     these rules: the axes its batch rows and its decode cache length are
     split over."""
     C = max(cache_context(cfg, shape), 1)
-    split = cfg.family in SHARDED_FAMILIES and C % mesh.shape["model"] == 0
+    split = C % mesh.shape["model"] == 0
     return {"batch_axes": batch_axes(shape.global_batch, mesh, multi_pod=multi_pod),
             "cache_axes": ("model",) if split and mesh.shape["model"] > 1 else ()}
 
@@ -408,7 +408,10 @@ def _blocks(tree, specs, mesh, device):
     return local_block(tree, specs, mesh).to(device)
 
 
-SHARDED_FAMILIES = ("dense", "moe")
+# the families whose serving program (prefill, decode) runs sharded on a mesh
+SHARDED_FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
+# the families whose train step runs sharded (``models.steps.make_train_step``)
+SHARDED_TRAIN_FAMILIES = ("dense", "moe")
 
 
 def place(model: torch.nn.Module | None, mesh, *, cfg: ArchConfig | None = None,
@@ -420,7 +423,8 @@ def place(model: torch.nn.Module | None, mesh, *, cfg: ArchConfig | None = None,
     (``cache_shardings``) and batch tensor (the batch rule) is replaced by
     this rank's block, the batch's rows split as ``batch_axes`` says; the
     tensors given must be whole. ``cfg`` is then required; its family must
-    have a sharded program (``SHARDED_FAMILIES``). An abstract mesh of more
+    have a sharded program (``SHARDED_FAMILIES``). The cache may be any
+    family's (the cache rules walk its nest). An abstract mesh of more
     than one device places nothing and raises."""
     if mesh.size == 1:
         dev = resolve_device(mesh.device)
@@ -439,8 +443,8 @@ def place(model: torch.nn.Module | None, mesh, *, cfg: ArchConfig | None = None,
             for name, p in params.items():
                 p.data = local_block(p.data, specs[name], mesh).to(dev)
     if cache is not None:
-        B = cache["pos"].shape[0]
-        shape = InputShape("placed", cache["k"].shape[2], B, "decode")
+        # the rules read the batch off ``pos`` and each tensor's dims off itself
+        shape = InputShape("placed", 1, cache["pos"].shape[0], "decode")
         cache = _blocks(cache, cache_shardings(cfg, shape, mesh, multi_pod=multi_pod,
                                                cache=cache), mesh, dev)
     if batch is not None:

@@ -5,7 +5,8 @@ counterpart of ``repro/launch/dryrun.py``).
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape decode_32k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--measure 3] [--out D]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu --smoke --measure 1
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes [--multi-pod]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes [--multi-pod] \
+        [--collect experiments/results/h100/dryrun_meshes.json]
 
 The reference lowers and compiles each step on a 16 x 16 TPU v5e pod of
 placeholder devices and reads XLA's memory and cost analyses. Here each
@@ -28,9 +29,10 @@ draw), on the card's (1, 1) mesh, and counted:
 
 ``--both-meshes`` counts on 16 x 16 ("data", "model") and 2 x 16 x 16
 ("pod", "data", "model") H100s instead (``--multi-pod``: the latter
-alone), the reference's production meshes. For the decoder families' (dense
-and moe) records, rank 0's sharded program runs on fake tensors under a
-fake process group of the mesh's size
+alone), the reference's production meshes. For every family's prefill and
+decode records (``sharding.SHARDED_FAMILIES``), and the dense and moe
+families' train records, rank 0's sharded program runs on fake tensors
+under a fake process group of the mesh's size
 (``torch.testing._internal.distributed.fake_pg``): every parameter, cache
 and batch tensor is placed as the rules place it (``sharding.place``),
 the prefill and the train step carry the sequence-parallel ``shard_h``,
@@ -41,9 +43,11 @@ each collective moves, the backward's and the update's included
 (``distributed.collectives.counting``). ``collective_s`` sums, over the
 groups the program reduces in, their bytes over the bandwidth of the
 slowest link the group spans (``LINKS``: ranks are numbered row-major with
-"model" innermost, ``NODE`` cards to an HGX node). The other families'
-records carry the rules' resident bytes per device and say why their
-collective term is not there yet (``RULES_ONLY``).
+"model" innermost, ``NODE`` cards to an HGX node). A recurrent family's
+prefill is counted at a few lengths and extrapolated in S, at full depth
+(``seq_extrapolated_count``). The other families' train records carry the
+rules' resident bytes per device and say why their collective term is not
+there yet (``RULES_ONLY``).
 
 A record is ``OK`` when its counted peak fits a card's 80 GB,
 ``DOES_NOT_FIT`` (with the counted bytes) when it does not, or ``SKIP``
@@ -318,10 +322,39 @@ def _direct(cfg, direct: bool) -> bool:
     return direct or bool(cfg.n_layers % layer_units(cfg)[0])
 
 
+def mesh_seq_points(cfg, shape) -> tuple | None:
+    """The sequence lengths a mesh record is counted at, at full depth, and
+    extrapolated from (``seq_extrapolated_count``): a recurrent family
+    outside decode (``count_points``), whose sLSTM and chunk loops would
+    unroll op by op over the whole sequence; None (counted once, whole)
+    otherwise."""
+    if shape.kind == "decode" or cfg.family not in ("ssm", "hybrid"):
+        return None
+    return count_points(cfg, shape)[1]
+
+
+def seq_extrapolated_count(cfg, shape, once, seqs=None) -> tuple[dict, dict]:
+    """The counters of ``cfg``'s step at ``shape`` from the same step at the
+    full depth at each of ``seqs`` (default ``mesh_seq_points``; each
+    counted by ``once``): the polynomial in S through them, of every
+    counter, the collective bytes by group included. -> (counters, how
+    they were counted)."""
+    seqs = tuple(seqs or mesh_seq_points(cfg, shape))
+    counted = [once(cfg, InputShape(shape.name, S, shape.global_batch, shape.kind))
+               for S in seqs]
+    keys = [k for k in counted[0] if k != "count_s"]
+    out = {k: float(_lagrange(seqs, [Fraction(c[k]) for c in counted], shape.seq_len))
+           for k in keys}
+    out["count_s"] = sum(c["count_s"] for c in counted)
+    return out, {"depth": "full", "seq_points": list(seqs)}
+
+
 def sharded_program(cfg, shape) -> str | None:
     """None when a mesh record runs the sharded program, else why not."""
     if cfg.family not in shd.SHARDED_FAMILIES:
         return f"not yet: {cfg.family} sharded program not ported"
+    if shape.kind == "train" and cfg.family not in shd.SHARDED_TRAIN_FAMILIES:
+        return f"not yet: {cfg.family} sharded train step not ported"
     return None
 
 
@@ -337,7 +370,11 @@ def steps_of(arch: str, shape_name: str, *, smoke: bool = False,
     if mesh != "1x1" and sharded_program(cfg, shape):
         return []
     if mesh != "1x1":
-        return [(cfg, shape, mesh)]
+        seqs = mesh_seq_points(cfg, shape)
+        if seqs is None:
+            return [(cfg, shape, mesh)]
+        return [(cfg, InputShape(shape.name, S, shape.global_batch, shape.kind), mesh)
+                for S in seqs]
     return [(cfg, shape)] if _direct(cfg, False) else count_steps(cfg, shape)
 
 
@@ -387,7 +424,9 @@ def count(arch: str, shape_name: str, *, smoke: bool = False, direct: bool = Fal
     """The counted record of one (arch, shape) on the named mesh (the
     card's (1, 1) by default); ``direct`` (or a depth that is no whole
     number of layer units, as the xLSTM's smoke config) counts the whole
-    step once instead of extrapolating. ``once`` counts one step
+    step once instead of extrapolating. A mesh record is counted at full
+    depth: whole, or, for a recurrent family outside decode, at a few
+    sequence lengths and extrapolated in S (``seq_extrapolated_count``). ``once`` counts one step
     (``count_all`` hands in the steps its workers counted); ``count_s``
     sums the seconds its steps took."""
     shape = INPUT_SHAPES[shape_name]
@@ -406,7 +445,11 @@ def count(arch: str, shape_name: str, *, smoke: bool = False, direct: bool = Fal
     if once is None:
         once = _count_once if mesh == "1x1" else functools.partial(_count_once_mesh,
                                                                    mesh_name=mesh)
-    if _direct(cfg, direct or mesh != "1x1"):
+    if mesh != "1x1" and not direct and mesh_seq_points(cfg, shape):
+        counted, how = seq_extrapolated_count(cfg, shape, once)
+        counted["calls"] = {k: int(counted.pop(k)) for k in ("flash_attention",
+                                                              "decode_attention")}
+    elif _direct(cfg, direct or mesh != "1x1"):
         counted, how = dict(once(cfg, shape)), {"direct": True}
         counted["calls"] = {k: counted.pop(k) for k in ("flash_attention",
                                                          "decode_attention")}
@@ -556,6 +599,26 @@ def write(records: list[dict], out: str):
             json.dump(rec, f, indent=1)
 
 
+def collect(records: list[dict], path: str, command: str):
+    """Every record in one JSON file, sorted by (mesh, arch, shape), with
+    the command, the host's cores and the card beside them (``nvidia-smi``'s
+    name and power limit, "not measured" without it)."""
+    import shutil
+    import subprocess
+    card = "not measured"
+    if shutil.which("nvidia-smi"):
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              check=True, timeout=60).stdout.strip().splitlines()[0]
+    out = {"command": command,
+           "host": f"{os.cpu_count()} host cores, counted on fake tensors",
+           "card": card,
+           "records": sorted(records, key=lambda r: (r["mesh"], r["arch"], r["shape"]))}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+
+
 def run(archs, shapes, *, smoke: bool = False, measure_k: int = 0, device="cuda",
         out: str | None = None, log=print, meshes=("1x1",)) -> list[dict]:
     records = count_all(archs, shapes, smoke=smoke, log=log, meshes=meshes)
@@ -583,13 +646,21 @@ def main(argv=None):
                     help="count per device on the 2 x 16 x 16 mesh instead of one card")
     ap.add_argument("--both-meshes", action="store_true",
                     help="count per device on 16 x 16 and 2 x 16 x 16 instead of one card")
+    ap.add_argument("--collect", default=None,
+                    help="also write every record into this one JSON file")
     args = ap.parse_args(argv)
     archs = list(ARCHS) if args.all or args.arch is None else [args.arch]
     shapes = list(INPUT_SHAPES) if args.all or args.shape is None else [args.shape]
     meshes = (PRODUCTION_MESHES if args.both_meshes else
               ("2x16x16",) if args.multi_pod else ("1x1",))
-    run(archs, shapes, smoke=args.smoke, measure_k=args.measure if meshes == ("1x1",) else 0,
-        device=args.device, out=args.out, meshes=meshes)
+    records = run(archs, shapes, smoke=args.smoke,
+                  measure_k=args.measure if meshes == ("1x1",) else 0,
+                  device=args.device, out=args.out, meshes=meshes)
+    if args.collect:
+        import sys
+        collect(records, args.collect, " ".join(
+            ["python -m repro_torch.launch.dryrun"] + list(sys.argv[1:] if argv is None
+                                                           else argv)))
     print("dry-run complete")
 
 

@@ -18,9 +18,9 @@ parsed. ``measure`` runs a step under three counters at once:
   products are not the kernel's); on fake tensors it only allocates its
   output, since the plain version computes the whole [S, S] square;
 - ``aten_bytes``: the operand and result bytes summed over every aten op
-  that computes (views and uninitialised factories excluded; a kernel call
-  counts q, k, v, its mask and its output). Unfused, so larger than the
-  reference's fused HLO count;
+  that computes (views, uninitialised factories and metadata queries
+  excluded; a kernel call counts q, k, v, its mask and its output).
+  Unfused, so larger than the reference's fused HLO count;
 - ``peak_bytes``: the most bytes of tensor storage live at once during the
   step, the step's inputs included: the eager program's allocation trace,
   without the caching allocator's rounding and fragmentation.
@@ -46,8 +46,11 @@ from repro_torch.kernels import ops
 from repro_torch.nn.linear import Embedding
 
 _STATE_KEYS = ("states", "ssm", "conv")    # recurrent state a decode step reads and rewrites
+# uninitialised factories, and ``prim.device``: a metadata query (iterating a
+# tensor asks it of the whole tensor at every step) moves no bytes
 _NO_TRAFFIC = {torch.ops.aten.empty, torch.ops.aten.empty_like, torch.ops.aten.empty_strided,
-               torch.ops.aten.new_empty, torch.ops.aten.new_empty_strided}
+               torch.ops.aten.new_empty, torch.ops.aten.new_empty_strided,
+               torch.ops.prim.device}
 
 
 @dataclass

@@ -9,12 +9,15 @@ stacked, ``[L, B, C, kv, hd]`` plus ``pos [B]``, as the reference's
 ``init_cache`` lays it out. The vlm family prepends the projected vision
 embeddings ``vision_embeds [B, P, d]`` to the token embeddings.
 
-Under a running mesh (``distributed.collectives``; the dense and moe
-families) each rank holds its blocks (``distributed.sharding.place``) and
-the layers run the sharded program: column/row-parallel attention, MLP and
-``lm_head``, expert-parallel MoE, a vocab- or width-split embedding, and,
-with ``shard_h``, the sequence-parallel residual stream, whose block each
-layer gathers before it attends. The logits come back whole for the
+Under a running mesh (``distributed.collectives``) each rank holds its
+blocks (``distributed.sharding.place``) and the layers run the sharded
+program: column/row-parallel attention, MLP and ``lm_head``,
+expert-parallel MoE, a vocab- or width-split embedding, the vlm's
+column-split ``vis_proj`` (gathered, then prepended to the tokens), and,
+with ``shard_h``, the sequence-parallel residual stream over every
+position (the vlm's patches and tokens), whose block each layer gathers
+before it attends. A collected cache holds every kv head and the rank's
+block of the P + S slots. The logits come back whole for the
 rank's batch rows, or, with ``vocab_block``, as the rank's block of a
 vocab-split ``lm_head`` (the train step's loss and the prefill's last
 position take it so). Under grad every collective carries its transpose

@@ -217,19 +217,17 @@ def make_prefill_step(cfg: ArchConfig, *, shard_h=None):
     is taken, and gathers that position alone."""
 
     def prefill_step(params, batch):
-        if cfg.family == "audio":
-            logits, _ = whisper.forward(params, batch, cfg, shard_h=shard_h)
-            cache = whisper.prefill_cache(params, batch, cfg, batch["tokens"].shape[1])
-            return logits[:, -1], cache
         if cfg.family in ("dense", "moe", "vlm"):
-            logits, _, cache = decoder.forward(params, batch, cfg, shard_h=shard_h,
-                                               collect_cache=True, vocab_block=True)
-            last = logits[:, -1]
-            if last.shape[-1] != cfg.vocab:
-                last = col.gather(last, "model", -1)
-            return last, cache
-        logits, aux = api.forward(params, batch, cfg, shard_h=shard_h)
-        return logits[:, -1], aux
+            logits, _, out = decoder.forward(params, batch, cfg, shard_h=shard_h,
+                                             collect_cache=True, vocab_block=True)
+        else:
+            logits, out = api.forward(params, batch, cfg, shard_h=shard_h, vocab_block=True)
+            if cfg.family == "audio":
+                out = whisper.prefill_cache(params, batch, cfg, batch["tokens"].shape[1])
+        last = logits[:, -1]
+        if last.shape[-1] != cfg.vocab:
+            last = col.gather(last, "model", -1)
+        return last, out
 
     return prefill_step
 

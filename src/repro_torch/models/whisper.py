@@ -10,6 +10,20 @@ cross-attention stays the plain ``_sdpa``, as in the reference.
 The cache holds the self-attention KV [L, B, C, H, hd], the cross-attention
 KV [L, B, enc_len, H, hd] (``ck``/``cv``) and ``pos`` [B]. A decode step
 writes its self-attention slot in place, as the dense family does.
+
+Under a running mesh (``distributed.collectives``) each rank holds its
+blocks (``distributed.sharding.place``): the embedding split by vocab rows
+or, where the vocab does not divide (whisper-small's 51865), by width, and
+the ``lm_head`` by vocab columns or d_model rows (``decoder.lm_head``);
+the learned positions by width; the self- and cross-attention's q, k, v
+over heads and ``wo`` by rows where the heads divide "model" (whole
+otherwise: whisper's 12 heads on 16 ranks); the MLP by d_ff. The
+self-attention decodes over a cache split over C (``attention_decode``).
+The cross-attention cache is whole over heads, as the rule keeps it:
+``prefill_cache`` gathers every head once per request, and a step uses its
+heads' slice. With ``shard_h`` each layer's output keeps the rank's block
+of the sequence, which the next layer gathers (the reference constrains
+each layer's input and output).
 """
 from __future__ import annotations
 
@@ -18,8 +32,10 @@ from torch import nn
 
 from repro_torch import nn as rnn
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as col
 from repro_torch.models import remat
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.decoder import lm_head
 from repro_torch.nn.attention import _sdpa
 
 MAX_POSITIONS = 4096  # learned table; whisper itself uses 448 target positions
@@ -64,19 +80,43 @@ def init_model(seed: int, cfg: ArchConfig, *, device="cuda") -> Whisper:
     return Whisper(cfg, device=dev, generator=gen)
 
 
-def _cross_kv(lp: WhisperLayer, enc, cfg: ArchConfig):
+def _embed(params: Whisper, tokens, pos_ids, cfg: ArchConfig):
+    return (rnn.embedding(params.embed, tokens, cfg.vocab, cfg.d_model)
+            + rnn.embedding(params.pos, pos_ids, MAX_POSITIONS, cfg.d_model))
+
+
+def _cross_split(lp: WhisperLayer, cfg: ArchConfig) -> bool:
+    """Whether this rank holds a block of the cross-attention's heads."""
+    return lp.cross_attn.wq.w.shape[1] < cfg.n_heads * cfg.head_dim
+
+
+def _cross_kv(lp: WhisperLayer, enc, cfg: ArchConfig, *, whole: bool = False):
+    """Cross-attention k, v [B, T, Hl, hd] of this rank's heads (every head
+    with ``whole``, gathered in one all-reduce)."""
     B, T, _ = enc.shape
-    k = rnn.linear(lp.cross_attn.wk, enc).reshape(B, T, cfg.n_heads, cfg.head_dim)
-    v = rnn.linear(lp.cross_attn.wv, enc).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    if _cross_split(lp, cfg):
+        enc = col.copy(enc, "model")
+    k = rnn.linear(lp.cross_attn.wk, enc).reshape(B, T, -1, cfg.head_dim)
+    v = rnn.linear(lp.cross_attn.wv, enc).reshape(B, T, -1, cfg.head_dim)
+    if whole and k.shape[2] < cfg.n_heads:
+        k, v = col.gather(torch.stack([k, v]), "model", 3).unbind(0)
     return k, v
 
 
 def _cross_apply(lp: WhisperLayer, x, ck, cv, cfg: ArchConfig):
+    """Cross-attention of ``x`` over ``ck``/``cv``: the rank's heads, or a
+    whole cache's slice of them; ``wo`` sums over "model"."""
     B, S, _ = x.shape
-    q = rnn.linear(lp.cross_attn.wq, x).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    if _cross_split(lp, cfg):
+        x = col.copy(x, "model")
+    q = rnn.linear(lp.cross_attn.wq, x).reshape(B, S, -1, cfg.head_dim)
+    Hl = q.shape[2]
+    if ck.shape[2] != Hl:                         # a whole cache: this rank's heads
+        h0 = col.index("model") * Hl
+        ck, cv = ck[:, :, h0:h0 + Hl], cv[:, :, h0:h0 + Hl]
     mask = torch.ones((1, 1, 1, S, ck.shape[1]), dtype=torch.bool, device=x.device)
-    out = _sdpa(q, ck, cv, mask).reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return rnn.linear(lp.cross_attn.wo, out)
+    out = _sdpa(q, ck, cv, mask).reshape(B, S, Hl * cfg.head_dim)
+    return rnn.linear_rows(lp.cross_attn.wo, out, cfg.n_heads * cfg.head_dim)
 
 
 def _aux(h):
@@ -85,20 +125,25 @@ def _aux(h):
 
 
 def forward(params: Whisper, batch, cfg: ArchConfig, *, window=None, shard_h=None,
-            last_only: bool = False, return_hidden: bool = False, sdpa: bool = False):
+            last_only: bool = False, return_hidden: bool = False, sdpa: bool = False,
+            vocab_block: bool = False):
     """Teacher-forced decode over a full target sequence. batch: tokens
     [B, S], enc_states [B, enc_len, d]. ``sdpa`` goes to the
-    self-attention's ``attention_prefill``; ``shard_h`` is accepted and
-    ignored. With ``cfg.remat`` and grad enabled each layer is recomputed
-    in the backward (``models.remat``), as the reference checkpoints its
-    scan body."""
+    self-attention's ``attention_prefill``; ``shard_h``
+    (``distributed.sharding.residual_constraint``) is applied to each
+    layer's output (module docstring); ``vocab_block`` returns a
+    vocab-split ``lm_head``'s block of the logits ungathered. With
+    ``cfg.remat`` and grad enabled each layer is recomputed in the backward
+    (``models.remat``), as the reference checkpoints its scan body."""
     tokens = batch["tokens"]
     enc = batch["enc_states"].to(cfg.param_dtype)
     B, S = tokens.shape
     pos_ids = torch.arange(S, device=tokens.device) % MAX_POSITIONS
-    h = rnn.embedding(params.embed, tokens) + rnn.embedding(params.pos, pos_ids)[None]
+    h = _embed(params, tokens, pos_ids[None], cfg)
 
     def body(lp, h):
+        if h.shape[1] != S:                               # a sequence block: gather it
+            h = col.gather(h, "model", 1)
         a, _ = rnn.attention_prefill(
             lp.self_attn, rnn.layernorm(lp.ln_self, h),
             n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
@@ -106,16 +151,19 @@ def forward(params: Whisper, batch, cfg: ArchConfig, *, window=None, shard_h=Non
         h = h + a
         ck, cv = _cross_kv(lp, enc, cfg)
         h = h + _cross_apply(lp, rnn.layernorm(lp.ln_cross, h), ck, cv, cfg)
-        return h + rnn.mlp(lp.mlp, rnn.layernorm(lp.ln_mlp, h), kind="gelu")
+        h = h + rnn.mlp(lp.mlp, rnn.layernorm(lp.ln_mlp, h), kind="gelu")
+        return h if shard_h is None else shard_h(h)
 
     for lp in params.layers:
         h = remat.layer(cfg, body, lp, h)
+    if h.shape[1] != S:
+        h = col.gather(h, "model", 1)
     if last_only:
         h = h[:, -1:]
     h = rnn.layernorm(params.ln_f, h)
     if return_hidden:
         return h, _aux(h)
-    return rnn.linear(params.lm_head, h), _aux(h)
+    return lm_head(params, h, cfg, vocab_block=vocab_block), _aux(h)
 
 
 def init_cache(cfg: ArchConfig, batch: int, context: int, *, dtype=None, device="cuda"):
@@ -131,12 +179,20 @@ def init_cache(cfg: ArchConfig, batch: int, context: int, *, dtype=None, device=
 
 
 def prefill_cache(params: Whisper, batch, cfg: ArchConfig, context: int):
-    """Populate the cross-attention KV from encoder states (done once)."""
+    """Populate the cross-attention KV from encoder states (done once). On a
+    mesh it holds every head (gathered), and the self-attention KV the
+    rank's block of ``context`` slots where they divide "model", as the
+    cache rule lays them out."""
     enc = batch["enc_states"].to(cfg.param_dtype)
-    kv = [_cross_kv(lp, enc, cfg) for lp in params.layers]
-    cache = init_cache(cfg, enc.shape[0], context, device=enc.device)
-    return {**cache, "ck": torch.stack([k for k, _ in kv]),
-            "cv": torch.stack([v for _, v in kv])}
+    kv = [_cross_kv(lp, enc, cfg, whole=True) for lp in params.layers]
+    M = col.span("model")
+    B = enc.shape[0]
+    sh = (cfg.n_layers, B, context // M if context % M == 0 else context, cfg.n_kv,
+          cfg.head_dim)
+    return {"k": torch.zeros(sh, dtype=enc.dtype, device=enc.device),
+            "v": torch.zeros(sh, dtype=enc.dtype, device=enc.device),
+            "ck": torch.stack([k for k, _ in kv]), "cv": torch.stack([v for _, v in kv]),
+            "pos": torch.zeros((B,), dtype=torch.int32, device=enc.device)}
 
 
 def decode_step(params: Whisper, batch, cache, cfg: ArchConfig, *, ring: bool = False):
@@ -146,7 +202,7 @@ def decode_step(params: Whisper, batch, cache, cfg: ArchConfig, *, ring: bool = 
     tokens = batch["tokens"]
     pos = cache["pos"]
     pos_ids = (pos % MAX_POSITIONS)[:, None]
-    h = rnn.embedding(params.embed, tokens) + rnn.embedding(params.pos, pos_ids)
+    h = _embed(params, tokens, pos_ids, cfg)
     for i, lp in enumerate(params.layers):
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i], "pos": pos}
         a, _ = rnn.attention_decode(
@@ -158,5 +214,5 @@ def decode_step(params: Whisper, batch, cache, cfg: ArchConfig, *, ring: bool = 
                              cache["cv"][i], cfg)
         h = h + rnn.mlp(lp.mlp, rnn.layernorm(lp.ln_mlp, h), kind="gelu")
     h = rnn.layernorm(params.ln_f, h)
-    logits = rnn.linear(params.lm_head, h)
+    logits = lm_head(params, h, cfg)
     return logits, {**cache, "pos": pos + 1}

@@ -4,6 +4,14 @@
 The cache is the recurrent state alone, one dict per layer, as the
 reference lays it out; a decode step returns new state tensors and leaves
 the ones it was given untouched.
+
+Under a running mesh (``distributed.collectives``) each rank holds its
+blocks (``distributed.sharding.place``) and the layers run the sharded
+program of ``nn.xlstm``; a state holds the rank's block of its key dim
+(mLSTM) or of each head's width (sLSTM) where the cache rule splits it.
+The embedding and ``lm_head`` split by vocab. With ``shard_h`` each
+layer's output keeps the rank's block of the sequence, which the next
+layer gathers (the reference constrains each layer's input).
 """
 from __future__ import annotations
 
@@ -12,8 +20,10 @@ from torch import nn
 
 from repro_torch import nn as rnn
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as col
 from repro_torch.models import remat
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.decoder import lm_head
 
 
 def is_slstm(cfg: ArchConfig, i: int) -> bool:
@@ -63,28 +73,39 @@ def _aux(h):
 
 
 def forward(params: XLSTMLM, batch, cfg: ArchConfig, *, window=None, shard_h=None,
-            last_only: bool = False, return_hidden: bool = False, sdpa: bool = False):
-    """tokens [B, S] -> (logits, aux). ``window``, ``shard_h`` and ``sdpa``
-    (no attention here) are accepted and ignored, as the dense family
-    does. With ``cfg.remat`` and grad enabled each layer is recomputed in
-    the backward (``models.remat``), as the reference checkpoints it."""
-    h = rnn.embedding(params.embed, batch["tokens"])
+            last_only: bool = False, return_hidden: bool = False, sdpa: bool = False,
+            vocab_block: bool = False):
+    """tokens [B, S] -> (logits, aux). ``window`` and ``sdpa`` (no
+    attention here) are accepted and ignored, as the dense family does;
+    ``shard_h`` (``distributed.sharding.residual_constraint``) is applied
+    to each layer's output (module docstring); ``vocab_block`` returns a
+    vocab-split ``lm_head``'s block of the logits ungathered. With
+    ``cfg.remat`` and grad enabled each layer is recomputed in the backward
+    (``models.remat``), as the reference checkpoints it."""
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    h = rnn.embedding(params.embed, tokens, cfg.vocab, cfg.d_model)
 
     def body(i, lp, h):
+        if h.shape[1] != S:                               # a sequence block: gather it
+            h = col.gather(h, "model", 1)
         x = rnn.rmsnorm(lp.ln, h)
         if is_slstm(cfg, i):
-            return h + rnn.slstm_scan(lp.slstm, x, n_heads=cfg.n_heads)
-        # chunkwise form: O(S*chunk) memory instead of O(S^2)
-        return h + rnn.mlstm_chunkwise(lp.mlstm, x, n_heads=cfg.n_heads)
+            h = h + rnn.slstm_scan(lp.slstm, x, n_heads=cfg.n_heads)
+        else:       # chunkwise form: O(S*chunk) memory instead of O(S^2)
+            h = h + rnn.mlstm_chunkwise(lp.mlstm, x, n_heads=cfg.n_heads)
+        return h if shard_h is None else shard_h(h)
 
     for i, lp in enumerate(params.layers):
         h = remat.layer(cfg, body, i, lp, h)
+    if h.shape[1] != S:
+        h = col.gather(h, "model", 1)
     if last_only:
         h = h[:, -1:]
     h = rnn.rmsnorm(params.ln_f, h)
     if return_hidden:
         return h, _aux(h)
-    return rnn.linear(params.lm_head, h), _aux(h)
+    return lm_head(params, h, cfg, vocab_block=vocab_block), _aux(h)
 
 
 def init_cache(cfg: ArchConfig, batch: int, context: int, *, dtype=None, device="cuda"):
@@ -98,7 +119,7 @@ def init_cache(cfg: ArchConfig, batch: int, context: int, *, dtype=None, device=
 
 
 def decode_step(params: XLSTMLM, batch, cache, cfg: ArchConfig, *, ring: bool = False):
-    h = rnn.embedding(params.embed, batch["tokens"])
+    h = rnn.embedding(params.embed, batch["tokens"], cfg.vocab, cfg.d_model)
     new_states = []
     for i, (lp, st) in enumerate(zip(params.layers, cache["states"], strict=True)):
         x = rnn.rmsnorm(lp.ln, h)
@@ -109,5 +130,5 @@ def decode_step(params: XLSTMLM, batch, cache, cfg: ArchConfig, *, ring: bool = 
         h = h + y
         new_states.append(new)
     h = rnn.rmsnorm(params.ln_f, h)
-    logits = rnn.linear(params.lm_head, h)
+    logits = lm_head(params, h, cfg)
     return logits, {"states": new_states, "pos": cache["pos"] + 1}

@@ -11,6 +11,16 @@ state (``ssm`` float32 [G, attn_every, B, H, P, N]), the conv tails
 A decode step writes its k/v slots in place, as the dense family does, and
 returns new ``ssm``/``conv`` tensors, leaving the ones it was given
 untouched (a replayed CUDA graph then recomputes the same step).
+
+Under a running mesh (``distributed.collectives``) each rank holds its
+blocks (``distributed.sharding.place``): the shared attention + SwiGLU
+block takes the decoder's tensor-parallel path and decodes over a KV cache
+split over C; each Mamba2 layer computes the rank's channels and heads of
+``d_inner`` (``nn.mamba2``), its SSM state the rank's heads and its conv
+tail whole; the embedding and ``lm_head`` split by vocab (or width). With
+``shard_h`` each group's output keeps the rank's block of the sequence,
+which the next group gathers (the reference constrains each group's input
+and output).
 """
 from __future__ import annotations
 
@@ -19,8 +29,10 @@ from torch import nn
 
 from repro_torch import nn as rnn
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as col
 from repro_torch.models import remat
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.decoder import lm_head
 from repro_torch.nn.mamba2 import CONV_K
 
 
@@ -91,23 +103,33 @@ def _shared_block(sp: SharedBlock, h, cfg: ArchConfig, *, window=None, sdpa=Fals
 
 
 def forward(params: Zamba, batch, cfg: ArchConfig, *, window=None, shard_h=None,
-            last_only: bool = False, return_hidden: bool = False, sdpa: bool = False):
+            last_only: bool = False, return_hidden: bool = False, sdpa: bool = False,
+            vocab_block: bool = False):
     """tokens [B, S] -> (logits, aux); aux is zero (no MoE). ``sdpa`` goes
-    to the shared block's ``attention_prefill``; ``shard_h`` is accepted
-    and ignored. With ``cfg.remat`` and grad enabled each group (the shared
-    block and its mamba layers) is recomputed in the backward
-    (``models.remat``), as the reference checkpoints its group body."""
-    h = rnn.embedding(params.embed, batch["tokens"])
+    to the shared block's ``attention_prefill``; ``shard_h``
+    (``distributed.sharding.residual_constraint``) is applied to each
+    group's output (module docstring); ``vocab_block`` returns a
+    vocab-split ``lm_head``'s block of the logits ungathered. With
+    ``cfg.remat`` and grad enabled each group (the shared block and its
+    mamba layers) is recomputed in the backward (``models.remat``), as the
+    reference checkpoints its group body."""
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    h = rnn.embedding(params.embed, tokens, cfg.vocab, cfg.d_model)
 
     def body(group, h):
+        if h.shape[1] != S:                               # a sequence block: gather it
+            h = col.gather(h, "model", 1)
         h = _shared_block(params.shared, h, cfg, window=window, sdpa=sdpa)
         for lp in group:
             h = h + rnn.mamba2_scan(lp.mamba, rnn.rmsnorm(lp.ln, h),
                                     n_heads=cfg.n_heads, d_state=cfg.ssm_state)
-        return h
+        return h if shard_h is None else shard_h(h)
 
     for group in params.mamba_layers:
         h = remat.layer(cfg, body, group, h)
+    if h.shape[1] != S:
+        h = col.gather(h, "model", 1)
     if last_only:
         h = h[:, -1:]
     h = rnn.rmsnorm(params.ln_f, h)
@@ -115,7 +137,7 @@ def forward(params: Zamba, batch, cfg: ArchConfig, *, window=None, shard_h=None,
     aux = {"lb_loss": zero, "dropped_frac": zero}
     if return_hidden:
         return h, aux
-    return rnn.linear(params.lm_head, h), aux
+    return lm_head(params, h, cfg, vocab_block=vocab_block), aux
 
 
 def init_cache(cfg: ArchConfig, batch: int, context: int, *, dtype=None,
@@ -140,7 +162,7 @@ def init_cache(cfg: ArchConfig, batch: int, context: int, *, dtype=None,
 def decode_step(params: Zamba, batch, cache, cfg: ArchConfig, *, ring: bool = False):
     """One-token decode -> (logits, new_cache); see the module docstring for
     what is written in place and what is new."""
-    h = rnn.embedding(params.embed, batch["tokens"])
+    h = rnn.embedding(params.embed, batch["tokens"], cfg.vocab, cfg.d_model)
     sp = params.shared
     pos = cache["pos"]
     ssm, conv = torch.empty_like(cache["ssm"]), torch.empty_like(cache["conv"])
@@ -161,6 +183,6 @@ def decode_step(params: Zamba, batch, cache, cfg: ArchConfig, *, ring: bool = Fa
             ssm[g, j] = new["ssm"]
             conv[g, j] = new["conv"]
     h = rnn.rmsnorm(params.ln_f, h)
-    logits = rnn.linear(params.lm_head, h)
+    logits = lm_head(params, h, cfg)
     return logits, {"k": cache["k"], "v": cache["v"], "ssm": ssm, "conv": conv,
                     "pos": pos + 1}

@@ -34,7 +34,7 @@ from torch import nn
 
 from repro_torch.distributed import collectives as col
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import NEG_INF
+from repro_torch.kernels.ref import NEG_INF, acc_dtype
 from repro_torch.nn.linear import Linear, linear, linear_rows, linear_shared
 from repro_torch.nn.rope import apply_rope, rope_frequencies
 
@@ -91,11 +91,11 @@ def _sdpa(q, k, v, mask):
     Hkv = k.shape[2]
     group = H // Hkv
     qg = q.reshape(B, S, Hkv, group, D)
-    logits = torch.einsum("bshgd,bthd->bhgst", qg.to(torch.float32),
-                          k.to(torch.float32)) / (D ** 0.5)
+    acc = acc_dtype(q)
+    logits = torch.einsum("bshgd,bthd->bhgst", qg.to(acc), k.to(acc)) / (D ** 0.5)
     logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgst,bthd->bshgd", probs, v.to(torch.float32))
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v.to(acc))
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
@@ -246,7 +246,7 @@ def _decode_merged(q, ck, cv, mask, n_heads: int):
     out, lse = kops.decode_attention(qa, ck, cv, mask, return_lse=True)
     top = col.pmax(lse, "model")                           # [B, H]: some rank has a slot
     w = torch.exp(lse - top)                               # 0 where lse = -inf
-    part = torch.cat([(out.to(torch.float32) * w[:, None, :, None]).reshape(B, -1), w], 1)
+    part = torch.cat([(out.to(w.dtype) * w[:, None, :, None]).reshape(B, -1), w], 1)
     tot = col.psum(part, "model")
     num = tot[:, :n_heads * D].reshape(B, 1, n_heads, D)
     merged = (num / tot[:, n_heads * D:][:, None, :, None]).to(q.dtype)

@@ -8,11 +8,28 @@ with x projected to heads of dim P, B/C of dim N shared across heads, a
 scalar decay per head, softplus dt per token and head, a causal depthwise
 conv over (x, B, C), a gated output (z branch) and RMSNorm before the
 out-projection. ``a_log``, ``dt_bias``, ``d_skip`` and the SSM state stay
-float32, as in the reference.
+float32, as in the reference; the scan computes in float32 (float64 for a
+float64 input).
 
 The scan is chunked: within a chunk the contribution is a dense quadratic
 form, across chunks a Python loop carries the [B, H, P, N] state (the
 reference's ``lax.scan``).
+
+Under a running mesh (``distributed.collectives``) a rank may hold column
+blocks of ``in_z``/``in_x`` (its channels of ``d_inner``: whole heads, or
+a block inside one head where the ranks outnumber the heads) and the
+matching row block of ``out_proj``, as the rules place them;
+``in_bc``, ``in_dt``, the conv, ``a_log``, ``dt_bias``, ``d_skip`` and
+``norm`` stay whole and the rank applies its channels' and heads' slice
+(``norms.rank_slice``, through ``copy``). Every channel's recurrence is
+its own, so the rank scans its heads alone; the gated norm sums its
+squares over "model" (``norms.rmsnorm_block``) and ``out_proj`` sums the
+partial products. The SSM state is the rank's heads (the cache rule splits
+it on H); where the heads do not divide the model axis it is whole, and
+decode sums the rank's block of the new state into it. The conv tail is whole by the rule, so decode gathers the new
+token's x channels before it runs the conv and writes the tail. The
+scan's collectives carry their transposes (one ``copy`` on every path
+from a whole tensor to a rank's own use); decode is inference only.
 """
 from __future__ import annotations
 
@@ -20,8 +37,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.nn.linear import Linear, _normal, linear
-from repro_torch.nn.norms import RMSNorm, rmsnorm
+from repro_torch.distributed import collectives as col
+from repro_torch.kernels.ref import acc_dtype
+from repro_torch.nn.linear import Linear, _normal, linear, linear_rows, linear_shared
+from repro_torch.nn.norms import RMSNorm, rank_slice, rmsnorm_block
 
 CONV_K = 4  # depthwise conv kernel width
 
@@ -57,30 +76,86 @@ class Mamba2(nn.Module):
         self.out_proj = Linear(d_inner, dim, **kw)
 
 
+def _local(params: Mamba2, n_heads: int) -> tuple[int, int, int, int, int]:
+    """(d_inner, this rank's channels Cl of it, the first head h0 they lie
+    in, the number of heads Hl they touch, the channels Pl of each): all of
+    them off a mesh, or where ``in_x`` is held whole. A rank's channels are
+    whole heads, or a block inside one head (more ranks than heads)."""
+    d_inner = params.norm.g.shape[0]
+    Cl = params.in_x.w.shape[1]
+    P = d_inner // n_heads
+    if Cl == d_inner:
+        return d_inner, Cl, 0, n_heads, P
+    h0 = col.index("model") * Cl // P
+    if Cl % P == 0:
+        return d_inner, Cl, h0, Cl // P, P
+    if P % Cl == 0:
+        return d_inner, Cl, h0, 1, Cl
+    raise ValueError(f"a rank's {Cl} of {d_inner} channels are neither whole heads of "
+                     f"{P} nor a block inside one")
+
+
 def _split_proj(params: Mamba2, x, d_state: int):
+    """z, x (the rank's channels), B, C, dt (every head). A rank holding
+    blocks of ``in_z``/``in_x`` takes ``x`` through ``copy`` and the whole
+    ``in_bc``/``in_dt`` through ``linear_shared``: it uses them for its own
+    channels."""
+    split = params.in_x.w.shape[1] < params.norm.g.shape[0]
+    if split:
+        x = col.copy(x, "model")
+    lin = linear_shared if split else linear
     z = linear(params.in_z, x)
     xs = linear(params.in_x, x)
-    B, C = torch.split(linear(params.in_bc, x), d_state, dim=-1)
-    dt = linear(params.in_dt, x)
+    B, C = torch.split(lin(params.in_bc, x), d_state, dim=-1)
+    dt = lin(params.in_dt, x)
     return z, xs, B, C, dt
 
 
-def _causal_conv(params: Mamba2, u, state=None):
+def _conv_slice(params: Mamba2, d_inner: int, Cl: int):
+    """The conv weight [K, Cl + 2N] and bias of this rank's x channels and
+    every B, C channel."""
+    if Cl == d_inner:
+        return params.conv_w, params.conv_b
+    lo = col.index("model") * Cl
+    w, b = col.copy(params.conv_w, "model"), col.copy(params.conv_b, "model")
+    return (torch.cat([w[:, lo:lo + Cl], w[:, d_inner:]], dim=1),
+            torch.cat([b[lo:lo + Cl], b[d_inner:]]))
+
+
+def _causal_conv(params: Mamba2, u, state=None, w=None, b=None):
     """u [B, S, conv_dim] -> same shape; depthwise causal conv of width
-    CONV_K. ``state`` [B, CONV_K-1, conv_dim] holds the trailing context
-    for decode. Returns (out, new_state)."""
-    w = params.conv_w.to(torch.float32)
+    CONV_K with ``w``/``b`` (default the whole ``conv_w``/``conv_b``).
+    ``state`` [B, CONV_K-1, conv_dim] holds the trailing context for
+    decode. Returns (out, new_state)."""
+    acc = acc_dtype(u)
+    w = (params.conv_w if w is None else w).to(acc)
+    b = params.conv_b if b is None else b
     if state is None:
         pad = torch.zeros((u.shape[0], CONV_K - 1, u.shape[2]), dtype=u.dtype,
                           device=u.device)
     else:
         pad = state.to(u.dtype)
-    full = torch.cat([pad, u], dim=1).to(torch.float32)                 # [B, S+K-1, D]
+    full = torch.cat([pad, u], dim=1).to(acc)                           # [B, S+K-1, D]
     S = u.shape[1]
     out = sum(full[:, i:i + S] * w[i] for i in range(CONV_K))
-    out = F.silu(out + params.conv_b.to(torch.float32))
+    out = F.silu(out + b.to(acc))
     new_state = full[:, -(CONV_K - 1):].to(u.dtype)
     return out.to(u.dtype), new_state
+
+
+def _heads(params: Mamba2, dt, h0: int, Hl: int):
+    """(softplus dt, A, d_skip) of the Hl heads from h0 this rank's channels
+    lie in, from ``dt`` [..., H] of every head (computed by
+    ``linear_shared``, so it is sliced as is)."""
+    H = dt.shape[-1]
+    if Hl == H:
+        dt_bias, a_log, d_skip = params.dt_bias, params.a_log, params.d_skip
+    else:
+        dt = dt.narrow(-1, h0, Hl)
+        dt_bias, a_log, d_skip = (col.copy(p, "model").narrow(0, h0, Hl)
+                                  for p in (params.dt_bias, params.a_log, params.d_skip))
+    dt = F.softplus(dt.to(acc_dtype(dt)) + dt_bias)
+    return dt, -torch.exp(a_log), d_skip
 
 
 def _chunk_step(H_prev, xh_k, B_k, C_k, ld_k, dt_k):
@@ -109,38 +184,41 @@ def _chunk_step(H_prev, xh_k, B_k, C_k, ld_k, dt_k):
 def mamba2_scan(params: Mamba2, x, *, n_heads: int, d_state: int, expand: int = 2,
                 chunk: int = 256, return_state: bool = False):
     """Full-sequence SSD. x [B, S, dim] -> y [B, S, dim] (or (y, state),
-    the state usable by ``mamba2_decode``, with ``return_state``). The
-    sequence must be a multiple of ``min(chunk, S)``; it is not padded."""
+    the state usable by ``mamba2_decode``, with ``return_state``; off a
+    mesh, or with whole weights). The sequence must be a multiple of
+    ``min(chunk, S)``; it is not padded."""
     Bsz, S, dim = x.shape
-    d_inner = expand * dim
-    P = d_inner // n_heads
+    d_inner, Cl, h0, Hl, Pl = _local(params, n_heads)
+    if return_state and Cl < d_inner:
+        raise ValueError("return_state takes the whole weights; on a mesh decode "
+                         "carries the state (mamba2_decode)")
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"seq {S} must be divisible by chunk {chunk}")
     z, xs, Bmat, Cmat, dt = _split_proj(params, x, d_state)
     conv_in = torch.cat([xs, Bmat, Cmat], dim=-1)
-    conv_out, _ = _causal_conv(params, conv_in)
-    xs, Bmat, Cmat = torch.split(conv_out, [d_inner, d_state, d_state], dim=-1)
+    conv_out, _ = _causal_conv(params, conv_in, None, *_conv_slice(params, d_inner, Cl))
+    xs, Bmat, Cmat = torch.split(conv_out, [Cl, d_state, d_state], dim=-1)
 
-    dt = F.softplus(dt.to(torch.float32) + params.dt_bias)               # [B, S, H]
-    a = -torch.exp(params.a_log)                                         # [H]
-    log_decay = dt * a                                                   # [B, S, H]
+    dt, a, d_skip = _heads(params, dt, h0, Hl)                           # [B, S, Hl]
+    log_decay = dt * a                                                   # [B, S, Hl]
 
-    xh = xs.reshape(Bsz, S, n_heads, P).to(torch.float32)
-    Bm = Bmat.to(torch.float32)
-    Cm = Cmat.to(torch.float32)
-    H = torch.zeros((Bsz, n_heads, P, d_state), dtype=torch.float32, device=x.device)
+    acc = acc_dtype(x)
+    xh = xs.reshape(Bsz, S, Hl, Pl).to(acc)
+    Bm = Bmat.to(acc)
+    Cm = Cmat.to(acc)
+    H = torch.zeros((Bsz, Hl, Pl, d_state), dtype=acc, device=x.device)
     ys = []
     for c0 in range(0, S, chunk):
         sl = slice(c0, c0 + chunk)
         H, y_k = _chunk_step(H, xh[:, sl], Bm[:, sl], Cm[:, sl], log_decay[:, sl],
                              dt[:, sl])
         ys.append(y_k)
-    y = torch.cat(ys, dim=1)                                             # [B, S, H, P]
-    y = y + params.d_skip[None, None, :, None] * xh
-    y = y.reshape(Bsz, S, d_inner).to(x.dtype)
-    y = rmsnorm(params.norm, y) * F.silu(z)
-    out = linear(params.out_proj, y)
+    y = torch.cat(ys, dim=1)                                             # [B, S, Hl, Pl]
+    y = y + d_skip[None, None, :, None] * xh
+    y = y.reshape(Bsz, S, Cl).to(x.dtype)
+    y = rmsnorm_block(params.norm, y, d_inner) * F.silu(z)
+    out = linear_rows(params.out_proj, y, d_inner)
     if return_state:
         return out, {"ssm": H, "conv": conv_in[:, -(CONV_K - 1):]}    # pre-conv inputs
     return out
@@ -161,27 +239,39 @@ def make_mamba_state(batch: int, dim: int, *, n_heads: int, d_state: int,
 def mamba2_decode(params: Mamba2, x, state, *, n_heads: int, d_state: int,
                   expand: int = 2):
     """One-token step. x [B, 1, dim] -> (y [B, 1, dim], new_state). The
-    state it was given is left untouched."""
+    state it was given is left untouched. On a mesh ``state["ssm"]`` holds
+    the rank's heads (or all of them, where the heads do not divide the
+    model axis: the rank's block of the new state is then summed into the
+    whole one) and ``state["conv"]`` the whole tail (module docstring)."""
     Bsz, S, dim = x.shape
     if S != 1:
         raise ValueError(f"decode takes one token per sequence, got {S}")
-    d_inner = expand * dim
-    P = d_inner // n_heads
+    d_inner, Cl, h0, Hl, Pl = _local(params, n_heads)
     z, xs, Bmat, Cmat, dt = _split_proj(params, x, d_state)
+    if Cl < d_inner:                          # the tail is whole: gather the x channels
+        xs = col.gather(xs, "model", -1)
     conv_in = torch.cat([xs, Bmat, Cmat], dim=-1)
     conv_out, conv_state = _causal_conv(params, conv_in, state["conv"])
     xs, Bmat, Cmat = torch.split(conv_out, [d_inner, d_state, d_state], dim=-1)
+    xs = rank_slice(xs, -1, Cl)
 
-    dt = F.softplus(dt[:, 0].to(torch.float32) + params.dt_bias)        # [B, H]
-    a = -torch.exp(params.a_log)
-    decay = torch.exp(dt * a)                                            # [B, H]
-    xh = xs[:, 0].reshape(Bsz, n_heads, P).to(torch.float32)
-    Bm = Bmat[:, 0].to(torch.float32)                                    # [B, N]
-    Cm = Cmat[:, 0].to(torch.float32)
+    dt, a, d_skip = _heads(params, dt[:, 0], h0, Hl)                     # [B, Hl]
+    decay = torch.exp(dt * a)                                            # [B, Hl]
+    acc = acc_dtype(x)
+    xh = xs[:, 0].reshape(Bsz, Hl, Pl).to(acc)
+    Bm = Bmat[:, 0].to(acc)                                              # [B, N]
+    Cm = Cmat[:, 0].to(acc)
 
-    H = state["ssm"] * decay[:, :, None, None] + torch.einsum(
-        "bh,bhp,bn->bhpn", dt, xh, Bm)
-    y = torch.einsum("bhpn,bn->bhp", H, Cm) + params.d_skip[None, :, None] * xh
-    y = y.reshape(Bsz, 1, d_inner).to(x.dtype)
-    y = rmsnorm(params.norm, y) * F.silu(z)
-    return linear(params.out_proj, y), {"ssm": H, "conv": conv_state}
+    ssm = state["ssm"]
+    whole = ssm.shape[1] != Hl                # every head held, a block of one computed
+    p0 = (col.index("model") * Cl) % (d_inner // n_heads)
+    prev = ssm[:, h0:h0 + Hl, p0:p0 + Pl] if whole else ssm
+    H = prev * decay[:, :, None, None] + torch.einsum("bh,bhp,bn->bhpn", dt, xh, Bm)
+    y = torch.einsum("bhpn,bn->bhp", H, Cm) + d_skip[None, :, None] * xh
+    y = y.reshape(Bsz, 1, Cl).to(x.dtype)
+    y = rmsnorm_block(params.norm, y, d_inner) * F.silu(z)
+    if whole:
+        full = torch.zeros_like(ssm)
+        full[:, h0:h0 + Hl, p0:p0 + Pl] = H
+        H = col.psum(full, "model")
+    return linear_rows(params.out_proj, y, d_inner), {"ssm": H, "conv": conv_state}
