@@ -144,7 +144,12 @@ Phases (any failure exits non-zero):
            in f32 on a (2, 2) mesh of four ranks sharing the card over gloo,
            batch 4 x 512, shard_h, ZeRO-1 moments, two steps, and
            granite-moe-3b-a800m at published width cut to 4 layers, one step
-           with the MoE plans replayed; each against the one-rank step on
+           with the MoE plans replayed; whisper-small (1500 encoder frames)
+           and xlstm-125m at published width and depth, zamba2-2.7b cut to 6
+           layers (one group under the shared block) and llava-next cut to
+           2 layers (576 patches), batch 2, one step each, their vision
+           patches or encoder frames drawn by parity.numpy_lm_batch; each
+           against the one-rank step on
            the card from the same seed (loss 1e-5, grad_norm 1e-4, every
            parameter and moment block 1e-4 of max(1, max-abs) after the last
            step), per-rank GiB of parameters, grads and moments beside the
@@ -2558,13 +2563,30 @@ def phase_mesh() -> dict:
     return counts
 
 
-MESH_TRAIN_OUT = "chiprun_out/mesh_train"
+MESH_TRAIN_OUT = "build/mesh_train"      # ignored by git; emptied after the phase
 MESH_TRAIN_SHAPE = (2, 2)
-# (arch, config overrides, batch, seq, steps, note): llama3.2-1b at published
-# width and depth; granite-moe at published width, depth cut to 4
-MESH_TRAIN = [("llama3.2-1b", {}, 4, 512, 2, "published width and depth"),
+# (arch, config overrides, batch, seq, steps, note, one-rank step in the ranks):
+# llama3.2-1b at published width and depth; granite-moe at published width,
+# depth cut to 4; their one-rank states are written under MESH_TRAIN_OUT
+# (one_rank_reference). The audio, ssm, hybrid and vlm families at published
+# width, their inputs besides the tokens drawn by parity.numpy_lm_batch (seq
+# counts text tokens: llava's sequence is its 576 patches and its text, its
+# labels -100 on the patches); each rank runs their one-rank step itself, one
+# rank at a time (parity.train), since writing every model's state would pass
+# what the card machine's disk takes
+MESH_TRAIN = [("llama3.2-1b", {}, 4, 512, 2, "published width and depth", False),
               ("granite-moe-3b-a800m", {"n_layers": 4}, 4, 512, 1,
-               "published width, depth cut to 4 of 32 layers, MoE plans replayed")]
+               "published width, depth cut to 4 of 32 layers, MoE plans replayed", False),
+              ("whisper-small", {}, 2, 64, 1,
+               "published width and depth, 1500 encoder frames", True),
+              ("xlstm-125m", {}, 2, 64, 1,
+               "published width and depth, 3 sLSTM layers of 12", True),
+              ("zamba2-2.7b", {"n_layers": 6}, 2, 64, 1,
+               "published width, depth cut to 1 group of 6 mamba layers of 9 (6 of 54 "
+               "layers) under the shared block", True),
+              ("llava-next-mistral-7b", {"n_layers": 2}, 2, 64, 1,
+               "published width, depth cut to 2 of 32 layers, 576 patches + 64 text "
+               "tokens", True)]
 # rel to max(1, max-abs); "near": elements where the one-rank step took a clipped
 # gradient within 100 eps of 0, held within 2 lr a step (AdamW's g / (|g| + eps)
 # maps the gradient's last bits there to a move of up to lr; tests/test_torch_train.py)
@@ -2583,14 +2605,13 @@ def one_rank_reference(arch, overrides, batch, seq, n_steps) -> tuple[str, dict]
 
     cfg = ARCHS[arch].replace(**overrides)
     data = {k: torch.from_numpy(v).cuda()
-            for k, v in parity.numpy_lm_batch(1, cfg.vocab, batch, seq).items()}
+            for k, v in parity.numpy_lm_batch(1, cfg, batch, seq).items()}
     model = api.init_model(0, cfg, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ref = parity.train_reference(cfg, model, data, steps=n_steps, grads=False,
                                  keep=(n_steps - 1,))
     info = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "n_params": sum(p.numel() for p in model.parameters()), "remat": cfg.remat,
             "step_ms": [round(x * 1e3, 1) for x in ref["step_s"]]}
     del model, data
     gc.collect()
@@ -2607,17 +2628,20 @@ def phase_mesh_train() -> dict:
     """The sharded train step on the card: each MESH_TRAIN model on a
     (2, 2) mesh of four ranks sharing the card over gloo, with shard_h,
     ZeRO-1 moments and the batch rows over "data", held against the
-    one-rank step on the card from the same seed: the one-rank runs go
-    first (one_rank_reference), then one launch of ranks runs every case
-    (parity.trains), each rank reading its blocks of the one-rank state
-    (mmap) within TRAIN_TOLS. Per rank: GiB of parameters, grads and
+    one-rank step on the card from the same seed: the one-rank runs of the
+    models whose ranks do not run it go first (one_rank_reference), then
+    one launch of ranks runs every case (parity.trains), each rank reading
+    its blocks of the one-rank state (mmap) or running the one-rank step
+    itself, within TRAIN_TOLS. Per rank: GiB of parameters, grads and
     moments beside the rules' bytes, the peak, the step ms. Ranks sharing
     one card over gloo check correctness: their times are not multi-card
     speed (in a whole run the dry run's host count runs beside this
     phase and the three before it). The step computes the reference's _sdpa
     and launches no attention kernel."""
     from repro_torch.cluster.executor import power_limit
+    from repro_torch.configs import ARCHS
     from repro_torch.distributed import parity
+    from repro_torch.distributed import sharding as shd
     from repro_torch.distributed.launch import run_on_mesh
     from repro_torch.kernels import ops
 
@@ -2625,22 +2649,26 @@ def phase_mesh_train() -> dict:
     card = f"{torch.cuda.get_device_name(0)}, {power_limit()}"
     shape = MESH_TRAIN_SHAPE
     paths, infos = [], []
-    for arch, over, batch, seq, n_steps, _ in MESH_TRAIN:
-        path, info = one_rank_reference(arch, over, batch, seq, n_steps)
+    for arch, over, batch, seq, n_steps, _, in_rank in MESH_TRAIN:
+        path, info = (None, {}) if in_rank else one_rank_reference(arch, over, batch, seq,
+                                                                   n_steps)
         paths.append(path)
         infos.append(info)
-    cases = [(arch, over, dict(smoke=False, batch=batch, seq=seq, want=path,
-                                gather_moments=False))
-             for (arch, over, batch, seq, _, _), path in zip(MESH_TRAIN, paths, strict=True)]
+    cases = [(arch, over, dict(smoke=False, batch=batch, seq=seq, gather_moments=False,
+                                **({"want": path} if path else
+                                   {"steps": n_steps, "check_grads": False})))
+             for (arch, over, batch, seq, n_steps, _, _), path in zip(MESH_TRAIN, paths,
+                                                                       strict=True)]
     t = time.perf_counter()
     try:
         ranks = run_on_mesh(parity.trains, shape, device="cuda", args=(cases,), timeout=900)
     finally:
         for path in paths:
-            os.remove(path)
+            if path:
+                os.remove(path)
     wall = time.perf_counter() - t
     gib = 2 ** 30
-    for i, (arch, _, batch, seq, n_steps, note) in enumerate(MESH_TRAIN):
+    for i, (arch, over, batch, seq, n_steps, note, _) in enumerate(MESH_TRAIN):
         for rank in ranks:
             r = rank[i]
             print(f"mesh_train: {arch} rank {r['rank']} of {shape} on {r['device']} ({card}) "
@@ -2663,14 +2691,18 @@ def phase_mesh_train() -> dict:
                       f"mesh_train: {arch} rank {r['rank']} {k} off by {v:.3e}")
         info, r0 = infos[i], ranks[0][i]
         slow = max(max(rank[i]["step_s"]) for rank in ranks) * 1e3
-        print(f"mesh_train: {arch} ({note}; {info['n_params']} parameters, f32, remat "
-              f"{info['remat']}), batch {batch} x {seq}, {n_steps} step(s) on {shape} with "
+        cfg = ARCHS[arch].replace(**over)
+        one = (f"one rank on the card: steps {info['step_ms']} ms, peak "
+               f"{info['peak_gib']:.2f} GiB; one-rank state written in {info['save_s']:.1f} s"
+               if info else "one rank on the card, run by each rank in turn: steps "
+               + str([round(x * 1e3, 1) for x in r0["ref_step_s"]]) + " ms (rank 0)")
+        print(f"mesh_train: {arch} ({note}; "
+              f"{sum(p.numel() for p in shd.abstract_params(cfg).values())} parameters, f32, "
+              f"remat {cfg.remat}), batch {batch} x {seq}, {n_steps} step(s) on {shape} with "
               f"shard_h and ZeRO-1: losses {[round(m['loss'], 6) for m in r0['metrics']]} vs "
               f"one rank {[round(m['loss'], 6) for m in r0['want_metrics']]}, grad_norm "
               f"{[round(m['grad_norm'], 5) for m in r0['metrics']]}; slowest rank's step "
-              f"{slow:.1f} ms; one rank on the card: steps {info['step_ms']} ms, peak "
-              f"{info['peak_gib']:.2f} GiB; one-rank state written in {info['save_s']:.1f} s",
-              flush=True)
+              f"{slow:.1f} ms; {one}", flush=True)
     print(f"mesh_train: one launch of {len(ranks)} ranks for {len(MESH_TRAIN)} models: "
           f"{wall:.1f} s", flush=True)
     check(ops.launch_counts() == before,

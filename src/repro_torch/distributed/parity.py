@@ -539,18 +539,32 @@ def numpy_moe(seed: int, d: int, f: int, E: int, shape) -> dict:
             "x": rng.standard_normal(shape).astype(np.float32)}
 
 
-def numpy_lm_batch(seed: int, vocab: int, batch: int, seq: int, *,
-                   uneven: bool = False) -> dict:
-    """Seeded NumPy tokens and labels [batch, seq] (int32). ``uneven``
-    masks labels (-100) unevenly over the rows: most of row 0, half of row
-    1, none below, so the data ranks hold different valid counts."""
+def numpy_lm_batch(seed: int, cfg, batch: int, seq: int, *, uneven: bool = False) -> dict:
+    """Seeded NumPy train inputs of ``seq`` text tokens a row: tokens [batch,
+    seq] and labels (int32), then the family's inputs besides the tokens
+    (unit normal, f32): the vlm's ``vision_embeds`` [batch, P, d], whose
+    patches come first in the sequence, so its labels are [batch, P + seq]
+    with -100 on the patch positions; the audio family's ``enc_states``
+    [batch, enc_len, d]. ``uneven`` masks text labels (-100) unevenly over
+    the rows: most of row 0, half of row 1, none below, so the data ranks
+    hold different valid counts. Every device reads the same arrays (a CUDA
+    generator draws other numbers than a CPU one)."""
     rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, vocab, (batch, seq)).astype(np.int32)
-    labels = rng.integers(0, vocab, (batch, seq)).astype(np.int32)
+    tokens = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)
     if uneven:
         labels[0, 1:] = -100
         labels[1, : seq // 2] = -100
-    return {"tokens": tokens, "labels": labels}
+    out = {"tokens": tokens, "labels": labels}
+    if cfg.family == "vlm":
+        out["labels"] = np.concatenate(
+            [np.full((batch, cfg.n_patches), -100, np.int32), labels], axis=1)
+        out["vision_embeds"] = rng.standard_normal(
+            (batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        out["enc_states"] = rng.standard_normal(
+            (batch, cfg.enc_len, cfg.d_model)).astype(np.float32)
+    return out
 
 
 NEAR_ZERO = 100 * 1e-8      # a clipped gradient this close to 0 (not 0) meets AdamW's eps
@@ -652,28 +666,33 @@ def _counted_as_100b(cfg):
 def train(mesh, arch: str, *, smoke: bool = True, overrides: dict | None = None,
           batch: int = 4, seq: int = 16, microbatch: int | None = None,
           uneven: bool = False, carried: str | None = None, want: str | None = None,
-          gather_moments: bool = True, fsdp: bool = False):
+          gather_moments: bool = True, fsdp: bool = False, steps: int = 2,
+          check_grads: bool = True):
     """The train step sharded on ``mesh`` against the one-rank step from the
     same weights: a model placed by ``sharding.place(kind="train")``, ZeRO-1
     moments (``sharding.zero_layout``), the batch rows over the data axes
-    and the sequence-parallel residual stream, two steps at the train
+    and the sequence-parallel residual stream, ``steps`` steps at the train
     step's learning rate. Weights: ``init_model(0)`` on every rank alike, or
     ``carried`` (the path of a ``torch.save``d {"params": whole tensors by
-    name, "tokens", "labels"}); the batch then comes from there too, else
-    from ``numpy_lm_batch``. The one-rank run: ``train_reference`` in the
-    rank, or ``want`` (the path of its ``torch.save``d results, loaded
-    with ``mmap``: each rank reads its blocks). -> per rank: errors of its
-    gradient (one step, before clipping), parameter and moment blocks after
+    name, and the batch: "tokens", "labels" and the family's inputs besides
+    the tokens}); the batch then comes from there too, else from
+    ``numpy_lm_batch`` (``seq`` text tokens a row). The one-rank run:
+    ``train_reference`` in the rank (on a card one rank at a time: ranks
+    that share it would each hold a one-rank step's memory at once), or
+    ``want`` (the path of its ``torch.save``d results, loaded with
+    ``mmap``: each rank reads its blocks). -> per rank: errors of its
+    gradient (one step, before clipping; with ``check_grads`` and no
+    ``want``, which holds none), parameter and moment blocks after
     each step against the one-rank blocks, each relative to max(1, max
     |one-rank|), with the parameter where each is largest; a parameter's
     elements where the one-rank step took a gradient near 0 (the state's
     "near", ``train_reference``) are held apart, by their absolute error
     (``near_<step>``) and count; the loss and
     ``grad_norm`` per step beside the one-rank ones; bytes held against
-    the rules'; its step times and (on a card) the peak it allocated over
-    the steps. ``fsdp`` counts the config as a 100B+ model, so the rules
-    split its experts' train blocks over "data" too (the FSDP blocks the
-    MoE gathers)."""
+    the rules'; its step times beside the one-rank run's and (on a card)
+    the peak it allocated over the steps. ``fsdp`` counts the config as a
+    100B+ model, so the rules split its experts' train blocks over "data"
+    too (the FSDP blocks the MoE gathers)."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import api
     from repro_torch.models import steps as msteps
@@ -688,17 +707,27 @@ def train(mesh, arch: str, *, smoke: bool = True, overrides: dict | None = None,
     if carried is not None:
         src = torch.load(carried, map_location="cpu")
         model.load_state_dict(src["params"], strict=True)
-        whole = {k: src[k] for k in ("tokens", "labels")}
+        whole = {k: v for k, v in src.items() if k != "params"}
     else:
         whole = {k: torch.from_numpy(v) for k, v in numpy_lm_batch(
-            1, cfg.vocab, batch, seq, uneven=uneven).items()}
+            1, cfg, batch, seq, uneven=uneven).items()}
     whole = {k: v.to(dev) for k, v in whole.items()}
     if want is None:
         import copy
-        ref = train_reference(cfg, copy.deepcopy(model), whole, microbatch=microbatch)
+        import torch.distributed as dist
+        serial = cuda and mesh.size > 1
+        for turn in range(mesh.size if serial else 1):
+            if not serial or turn == mesh.rank:
+                ref = train_reference(cfg, copy.deepcopy(model), whole, steps=steps,
+                                      microbatch=microbatch, grads=check_grads)
+            if serial:
+                torch.cuda.empty_cache()
+                dist.barrier()
     else:
         ref = torch.load(want, map_location="cpu", mmap=True)
-    shape = InputShape("train", whole["tokens"].shape[1], whole["tokens"].shape[0], "train")
+    # the residual stream runs over every position the labels cover (a vlm's
+    # patches and its text), which decides the sequence split
+    shape = InputShape("train", whole["labels"].shape[1], whole["labels"].shape[0], "train")
     multi_pod = "pod" in mesh.shape
     model, _, placed = shd.place(model, mesh, cfg=cfg, kind="train", batch=whole,
                                  multi_pod=multi_pod)
@@ -772,7 +801,7 @@ def train(mesh, arch: str, *, smoke: bool = True, overrides: dict | None = None,
     return {"rank": mesh.rank, "backend": mesh.backend, "device": str(dev), "errs": errs,
             "where": where, "near_counts": counts, "metrics": metrics,
             "want_metrics": want_metrics, "held": held,
-            "rule": rule, "step_s": walls,
+            "rule": rule, "step_s": walls, "ref_step_s": list(ref.get("step_s", [])),
             "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
             "finite": all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
                           for m in metrics)}

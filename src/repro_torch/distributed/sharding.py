@@ -408,10 +408,8 @@ def _blocks(tree, specs, mesh, device):
     return local_block(tree, specs, mesh).to(device)
 
 
-# the families whose serving program (prefill, decode) runs sharded on a mesh
+# the families whose program (prefill, decode, the train step) runs sharded on a mesh
 SHARDED_FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
-# the families whose train step runs sharded (``models.steps.make_train_step``)
-SHARDED_TRAIN_FAMILIES = ("dense", "moe")
 
 
 def place(model: torch.nn.Module | None, mesh, *, cfg: ArchConfig | None = None,

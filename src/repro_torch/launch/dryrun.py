@@ -29,9 +29,8 @@ draw), on the card's (1, 1) mesh, and counted:
 
 ``--both-meshes`` counts on 16 x 16 ("data", "model") and 2 x 16 x 16
 ("pod", "data", "model") H100s instead (``--multi-pod``: the latter
-alone), the reference's production meshes. For every family's prefill and
-decode records (``sharding.SHARDED_FAMILIES``), and the dense and moe
-families' train records, rank 0's sharded program runs on fake tensors
+alone), the reference's production meshes. For every family's records
+(``sharding.SHARDED_FAMILIES``), rank 0's sharded program runs on fake tensors
 under a fake process group of the mesh's size
 (``torch.testing._internal.distributed.fake_pg``): every parameter, cache
 and batch tensor is placed as the rules place it (``sharding.place``),
@@ -44,10 +43,11 @@ each collective moves, the backward's and the update's included
 groups the program reduces in, their bytes over the bandwidth of the
 slowest link the group spans (``LINKS``: ranks are numbered row-major with
 "model" innermost, ``NODE`` cards to an HGX node). A recurrent family's
-prefill is counted at a few lengths and extrapolated in S, at full depth
-(``seq_extrapolated_count``). The other families' train records carry the
-rules' resident bytes per device and say why their collective term is not
-there yet (``RULES_ONLY``).
+prefill and train step are counted at a few lengths and extrapolated in S,
+at full depth (``seq_extrapolated_count``). The minimum bytes are the
+rank's own: a decode reads its rows x slots of its cache block. A family
+without a sharded program would keep the rules' resident bytes per device
+and say why its collective term is missing (``RULES_ONLY``); none is left.
 
 A record is ``OK`` when its counted peak fits a card's 80 GB,
 ``DOES_NOT_FIT`` (with the counted bytes) when it does not, or ``SKIP``
@@ -149,16 +149,24 @@ def build_step(cfg, shape, device, *, gen: torch.Generator | None = None):
             (model, batch, cache))
 
 
-def _min_bytes(cfg, shape, args, out) -> float:
-    """What the step must move, each input read once, each output once."""
+def _min_bytes(cfg, shape, args, out, *, tokens: int | None = None) -> float:
+    """What the step must move, each input read once, each output once, on
+    the device that runs it: a decode reads the embedding rows of its batch
+    rows and every slot of its cache block (the context is consumed, so
+    every slot is valid), which on a mesh is the rank's rows and slots; a
+    prefill reads at most ``tokens`` rows of each embedding table (default
+    the whole batch's tokens)."""
     if shape.kind == "decode":
         model, batch, cache = args
         logits = out[0]
-        valid = shape.global_batch * max(steps.cache_context(cfg, shape), 1)
-        return step_cost.step_bytes(model, cache, shape.global_batch, logits, valid=valid)
-    tokens = shape.global_batch * shape.seq_len
+        kv = cache.get("k")
+        valid = None if kv is None else kv.shape[1] * kv.shape[2]    # [.., B, C, ..]
+        return step_cost.step_bytes(model, cache, batch["tokens"].shape[0], logits,
+                                    valid=valid)
     if shape.kind == "prefill":
         model, batch = args
+        if tokens is None:
+            tokens = shape.global_batch * shape.seq_len
         return step_cost.io_bytes([model, batch], list(out), tokens=tokens)
     model, opt, batch = args
     moments = [opt["m"], opt["v"]]
@@ -227,10 +235,13 @@ def _fake_world(n: int):
     return dist
 
 
-def _count_once_mesh(cfg, shape, mesh_name: str) -> dict:
+def _count_once_mesh(cfg, shape, mesh_name: str, seq_len: int | None = None) -> dict:
     """``_count_once`` of rank 0's sharded program on the ``mesh_name``
     mesh, with the collective bytes it moves per device, by group
-    (``coll_bytes:<axes>``)."""
+    (``coll_bytes:<axes>``). A prefill's embedding rows read are capped at
+    the rank's tokens of the record's length ``seq_len`` (default
+    ``shape.seq_len``), so that a count at a shorter length, extrapolated in
+    S, reads what the record's step reads."""
     t0 = time.perf_counter()
     mesh_shape, multi_pod = mesh_spec(mesh_name)
     dist = _fake_world(int(torch.tensor(mesh_shape).prod()))
@@ -254,9 +265,11 @@ def _count_once_mesh(cfg, shape, mesh_name: str) -> dict:
             axes = shd.program_axes(cfg, shape, mesh, multi_pod=multi_pod)
             with col.use_mesh(mesh, **axes), col.counting() as moved:
                 out, cost = step_cost.measure(step, *args)
+            tokens = batch["tokens"].shape[0] * steps.text_len(cfg, seq_len or shape.seq_len)
             counted = {"flops": cost.flops, "attention_flops": cost.attention_flops,
                        "aten_bytes": cost.aten_bytes, "peak_bytes": cost.peak_bytes,
-                       "min_bytes": _min_bytes(cfg, shape, args, out), **cost.calls,
+                       "min_bytes": _min_bytes(cfg, shape, args, out, tokens=tokens),
+                       **cost.calls,
                        **{"coll_bytes:" + ",".join(g): b for g, b in moved.by_group.items()}}
     finally:
         dist.destroy_process_group()
@@ -340,8 +353,8 @@ def seq_extrapolated_count(cfg, shape, once, seqs=None) -> tuple[dict, dict]:
     counter, the collective bytes by group included. -> (counters, how
     they were counted)."""
     seqs = tuple(seqs or mesh_seq_points(cfg, shape))
-    counted = [once(cfg, InputShape(shape.name, S, shape.global_batch, shape.kind))
-               for S in seqs]
+    counted = [once(cfg, InputShape(shape.name, S, shape.global_batch, shape.kind),
+                    seq_len=shape.seq_len) for S in seqs]
     keys = [k for k in counted[0] if k != "count_s"]
     out = {k: float(_lagrange(seqs, [Fraction(c[k]) for c in counted], shape.seq_len))
            for k in keys}
@@ -353,17 +366,17 @@ def sharded_program(cfg, shape) -> str | None:
     """None when a mesh record runs the sharded program, else why not."""
     if cfg.family not in shd.SHARDED_FAMILIES:
         return f"not yet: {cfg.family} sharded program not ported"
-    if shape.kind == "train" and cfg.family not in shd.SHARDED_TRAIN_FAMILIES:
-        return f"not yet: {cfg.family} sharded train step not ported"
     return None
 
 
 def steps_of(arch: str, shape_name: str, *, smoke: bool = False,
              mesh: str = "1x1") -> list[tuple]:
-    """The steps ``count`` counts for one record: (config, shape), and the
-    mesh's name off the card's (1, 1) mesh, where the whole step is counted
-    once: a cut depth would change what the rules and ``decode_step`` read
-    off the parameter count (the 100B+ expert split)."""
+    """The steps ``count`` counts for one record. On the card's (1, 1) mesh
+    each is (config, shape). On a mesh each is (config, shape, the mesh's
+    name, the record's length), at full depth: the whole step once, or at a
+    few shorter lengths, each reading the record's embedding rows
+    (``_count_once_mesh``); a cut depth would change what the rules and
+    ``decode_step`` read off the parameter count (the 100B+ expert split)."""
     if (arch, shape_name) in SKIPS:
         return []
     cfg, shape = arch_config(arch, smoke=smoke), INPUT_SHAPES[shape_name]
@@ -372,9 +385,9 @@ def steps_of(arch: str, shape_name: str, *, smoke: bool = False,
     if mesh != "1x1":
         seqs = mesh_seq_points(cfg, shape)
         if seqs is None:
-            return [(cfg, shape, mesh)]
-        return [(cfg, InputShape(shape.name, S, shape.global_batch, shape.kind), mesh)
-                for S in seqs]
+            return [(cfg, shape, mesh, shape.seq_len)]
+        return [(cfg, InputShape(shape.name, S, shape.global_batch, shape.kind), mesh,
+                 shape.seq_len) for S in seqs]
     return [(cfg, shape)] if _direct(cfg, False) else count_steps(cfg, shape)
 
 
@@ -543,7 +556,7 @@ def pick(records: list[dict], k: int) -> list[dict]:
 
 def _count_worker(step) -> dict:
     torch.set_num_threads(1)
-    if len(step) == 3:
+    if len(step) == 4:
         return _count_once_mesh(*step)
     return _count_once(*step)
 
@@ -587,8 +600,10 @@ def count_all(archs, shapes, *, smoke: bool = False, workers: int | None = None,
     return records
 
 
-def _done(done: dict, cfg, shape, mesh: str | None = None) -> dict:
-    return done[(cfg, shape) if mesh is None else (cfg, shape, mesh)]
+def _done(done: dict, cfg, shape, mesh: str | None = None, seq_len: int | None = None
+          ) -> dict:
+    return done[(cfg, shape) if mesh is None else (cfg, shape, mesh,
+                                                   seq_len or shape.seq_len)]
 
 
 def write(records: list[dict], out: str):

@@ -229,24 +229,26 @@ def test_dryrun_counts_collectives_on_fake_8_rank_group(shape_name):
 
 
 def test_dryrun_names_why_a_term_is_missing():
-    """The audio, hybrid, ssm and vlm families' train records keep the
-    rules' bytes and say that their sharded train step is missing; their
-    prefill and decode records are counted with a collective term; the
-    decoder families' train records are counted."""
+    """No reason is left to name: every family runs its sharded program on
+    a mesh, the train step included. The audio, hybrid, ssm and vlm
+    families' train_4k mesh records are counted, OK, with a collective
+    term whose groups include "data" (the gradient sum and the ZeRO
+    gathers); their prefill and decode records too, over "model"."""
+    for arch in ARCHS:
+        cfg = dryrun.arch_config(arch, smoke=True)
+        for shape_name, shape in dryrun.INPUT_SHAPES.items():
+            assert dryrun.sharded_program(cfg, shape) is None, (arch, shape_name)
     for arch in ("whisper-small", "zamba2-2.7b", "xlstm-125m", "llava-next-mistral-7b"):
-        family = ARCHS[arch].family
         rec = dryrun.count(arch, "train_4k", smoke=True, mesh="2x4")
-        assert rec["status"] == "RULES_ONLY" and rec["roofline"]["collective_s"] is None
-        assert rec["reason"] == rec["roofline"]["collective"] == (
-            f"not yet: {family} sharded train step not ported")
+        assert rec["status"] == "OK", (arch, rec.get("reason"))
+        assert rec["roofline"]["collective_s"] > 0
+        assert {"data", "model"} <= set(rec["roofline"]["collective"]["groups"]), arch
         assert rec["resident_bytes"]["params"] > 0 and "opt" in rec["resident_bytes"]
         for shape_name in ("prefill_32k", "decode_32k"):
             rec = dryrun.count(arch, shape_name, smoke=True, mesh="2x4")
             assert rec["status"] == "OK", (arch, shape_name)
             assert rec["roofline"]["collective_s"] > 0
             assert set(rec["roofline"]["collective"]["groups"]) == {"model"}
-    assert dryrun.sharded_program(dryrun.arch_config("llama3.2-1b", smoke=True),
-                                  dryrun.INPUT_SHAPES["train_4k"]) is None
     assert dryrun.link_of("16x16", ("model",)) == "ib"
     assert dryrun.link_of("2x4", ("data", "model")) == "nvlink"
 

@@ -86,6 +86,8 @@ FAMILIES = {"dense": "llama3.2-1b", "moe": "granite-moe-3b-a800m",
             "ssm": "xlstm-125m", "hybrid": "zamba2-2.7b"}
 REF_CASES = {"llama3.2-1b": ({}, (32, 8)), "granite-moe-3b-a800m": (GRANITE_DRYRUN, (64, 8))}
 
+# the reference's sharded step on 8 forced host devices for each (arch,
+# overrides) of argv[2], on the batch the test wrote to <argv[1]>/<arch>_batch.npz
 REF_SCRIPT = textwrap.dedent("""
     import os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
@@ -99,16 +101,16 @@ REF_SCRIPT = textwrap.dedent("""
     from repro.train import adamw_init
 
     def flat(tree):
-        return {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(leaf)
+        return {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path):
+                np.asarray(leaf)
                 for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
     mesh = make_mesh((2, 4), ("data", "model"))
-    for arch, over, S, B in eval(sys.argv[2]):
+    for arch, over in eval(sys.argv[2]):
         cfg = ARCHS[arch].smoke().replace(**over)
+        batch = dict(np.load(os.path.join(sys.argv[1], arch + "_batch.npz")))
+        B, S = batch["labels"].shape
         shape = InputShape("t", S, B, "train")
-        rng = np.random.default_rng(1)
-        batch = {k: rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
-                 for k in ("tokens", "labels")}
         params = api.init_model(jax.random.PRNGKey(0), cfg)
         opt = adamw_init(params)
         zsh = shd.opt_shardings(cfg, mesh)
@@ -116,7 +118,6 @@ REF_SCRIPT = textwrap.dedent("""
                  {"m": zsh, "v": zsh, "step": NamedSharding(mesh, P())},
                  shd.batch_shardings(cfg, shape, mesh))
         out = {"init/" + k: v for k, v in flat(params).items()}
-        out.update(batch)
         with use_mesh(mesh):
             step = jax.jit(steps.make_train_step(cfg), in_shardings=in_sh)
             for i in range(2):
@@ -132,7 +133,8 @@ REF_SCRIPT = textwrap.dedent("""
 
 
 def _nest(flat: dict, prefix: str) -> dict:
-    """The reference pytree under ``prefix`` from its "/"-joined leaf paths."""
+    """The reference pytree under ``prefix`` from its "/"-joined leaf paths
+    (a node whose keys are all list indices is the list it was)."""
     tree = {}
     for key, val in flat.items():
         if not key.startswith(prefix + "/"):
@@ -142,7 +144,16 @@ def _nest(flat: dict, prefix: str) -> dict:
         for p in path:
             node = node.setdefault(p, {})
         node[leaf] = val
-    return tree
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(tree)
 
 
 def _port(cfg, tree: dict) -> dict:
@@ -151,25 +162,28 @@ def _port(cfg, tree: dict) -> dict:
     return {n: p.detach().clone() for n, p in model.named_parameters()}
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    """The reference's sharded step on 8 forced host devices -> per arch
-    the paths of the carried weights and batch and of its results, as
-    ``parity.train`` reads them."""
-    out = tmp_path_factory.mktemp("ref_train")
+def run_reference(out, cases: dict) -> dict:
+    """``REF_SCRIPT`` in a subprocess for ``cases`` (arch -> (config
+    overrides, (text tokens a row, rows))), on ``parity.numpy_lm_batch``'s
+    batch from seed 1, written to ``out`` first -> per arch the paths of the
+    carried weights and batch and of its results, as ``parity.train`` reads
+    them."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    cases = [(a, over, S, B) for a, (over, (S, B)) in REF_CASES.items()]
-    res = subprocess.run([sys.executable, "-c", REF_SCRIPT, str(out), repr(cases)],
+    for arch, (over, (S, B)) in cases.items():
+        np.savez(out / f"{arch}_batch.npz", **parity.numpy_lm_batch(
+            1, ARCHS[arch].smoke().replace(**over), B, S))
+    res = subprocess.run([sys.executable, "-c", REF_SCRIPT, str(out),
+                          repr([(a, over) for a, (over, _) in cases.items()])],
                          capture_output=True, text=True, timeout=REF_LIMIT_S, cwd=root,
                          env={**os.environ, "PYTHONPATH": os.path.join(root, "src")})
     assert res.returncode == 0, res.stderr[-2000:]
     paths = {}
-    for arch, (over, _) in REF_CASES.items():
+    for arch, (over, _) in cases.items():
         cfg = ARCHS[arch].smoke().replace(**over)
         flat = dict(np.load(out / f"{arch}.npz"))
+        batch = dict(np.load(out / f"{arch}_batch.npz"))
         carried = {"params": _port(cfg, _nest(flat, "init")),
-                   "tokens": torch.from_numpy(flat["tokens"]),
-                   "labels": torch.from_numpy(flat["labels"])}
+                   **{k: torch.from_numpy(v) for k, v in batch.items()}}
         want = {"metrics": [{"loss": float(flat[f"loss/{i}"]),
                              "grad_norm": float(flat[f"grad_norm/{i}"])} for i in range(2)],
                 "states": [{tag: _port(cfg, _nest(flat, f"{tag}{i}"))
@@ -178,6 +192,12 @@ def reference(tmp_path_factory):
         torch.save(carried, paths[arch][0])
         torch.save(want, paths[arch][1])
     return paths
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """The reference's sharded step on 8 forced host devices."""
+    return run_reference(tmp_path_factory.mktemp("ref_train"), REF_CASES)
 
 
 @functools.cache
