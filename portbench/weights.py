@@ -1,0 +1,171 @@
+"""Weights of the cells' architectures, made on the device from the run's seed.
+
+The benchmark makes the weights and hands the same values to the program
+(copied into its parameters by name) and to the plain reference (made again,
+group by group, from the same seed). ``layout`` is the port's parameter layout
+for an architecture (names, shapes and dtypes in its order), frozen here; the
+harness refuses to run if the program's parameters differ from it.
+
+Each group (the embeddings, one layer, the final norm and head) is one
+``torch.randn`` on a generator seeded from (seed, stage, variant, group),
+scaled by its kind: tables ``.e`` 0.02, gains ``.g`` 1 + 0.1 n, biases ``.b``
+0.02 n, every matrix 1/sqrt(fan_in) (lecun-normal, as the port initialises).
+"""
+
+from __future__ import annotations
+
+import torch
+
+WHISPER_POSITIONS = 4096  # the whisper decoder's learned position table
+MASK64 = (1 << 64) - 1
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def phys_experts(n: int) -> int:
+    """Experts >= 16 are held padded to a multiple of 16, as the port lays
+    them out; the router stays at the logical count."""
+    return n if n < 16 else 16 * -(-n // 16)
+
+
+def supported(arch: dict) -> bool:
+    """Whether the plain reference covers the architecture."""
+    if arch["family"] in ("dense", "vlm", "moe"):
+        return arch.get("moe_every", 0) <= 1 and arch.get("window") is None
+    return arch["family"] == "audio"
+
+
+def _norm(prefix: str, d: int, layernorm: bool, dt):
+    out = [(f"{prefix}.g", (d,), dt)]
+    return out + [(f"{prefix}.b", (d,), dt)] if layernorm else out
+
+
+def _linear(prefix: str, i: int, o: int, bias: bool, dt):
+    out = [(f"{prefix}.w", (i, o), dt)]
+    return out + [(f"{prefix}.b", (o,), dt)] if bias else out
+
+
+def _attention(prefix: str, d: int, h: int, kv: int, hd: int, bias: bool, dt):
+    return (
+        _linear(f"{prefix}.wq", d, h * hd, bias, dt)
+        + _linear(f"{prefix}.wk", d, kv * hd, bias, dt)
+        + _linear(f"{prefix}.wv", d, kv * hd, bias, dt)
+        + _linear(f"{prefix}.wo", h * hd, d, False, dt)
+    )
+
+
+def _mlp(prefix: str, d: int, f: int, kind: str, dt):
+    if kind == "swiglu":
+        return (
+            _linear(f"{prefix}.wg", d, f, False, dt)
+            + _linear(f"{prefix}.wu", d, f, False, dt)
+            + _linear(f"{prefix}.wd", f, d, False, dt)
+        )
+    return _linear(f"{prefix}.w1", d, f, True, dt) + _linear(f"{prefix}.w2", f, d, True, dt)
+
+
+def layout(arch: dict) -> list[tuple[str, tuple, torch.dtype]]:
+    """(name, shape, dtype) of every parameter, in the port's order."""
+    if not supported(arch):
+        raise ValueError(f"no weight layout for {arch['name']} ({arch['family']})")
+    dt = DTYPES[arch["dtype"]]
+    d, h, kv, f, v = (arch[k] for k in ("d_model", "n_heads", "n_kv", "d_ff", "vocab"))
+    hd = d // h
+    out = [("embed.e", (v, d), dt)]
+    if arch["family"] == "audio":
+        out.append(("pos.e", (WHISPER_POSITIONS, d), dt))
+        for i in range(arch["n_layers"]):
+            p = f"layers.{i}"
+            out += _norm(f"{p}.ln_self", d, True, dt)
+            out += _attention(f"{p}.self_attn", d, h, h, hd, True, dt)
+            out += _norm(f"{p}.ln_cross", d, True, dt)
+            out += _attention(f"{p}.cross_attn", d, h, h, hd, True, dt)
+            out += _norm(f"{p}.ln_mlp", d, True, dt)
+            out += _mlp(f"{p}.mlp", d, f, "gelu", dt)
+        return out + _norm("ln_f", d, True, dt) + [("lm_head.w", (d, v), dt)]
+    ln = arch["norm"] == "layernorm"
+    for i in range(arch["n_layers"]):
+        p = f"layers.{i}"
+        out += _norm(f"{p}.ln_attn", d, ln, dt)
+        out += _attention(f"{p}.attn", d, h, kv, hd, ln, dt)
+        out += _norm(f"{p}.ln_mlp", d, ln, dt)
+        if arch["n_experts"]:
+            e = phys_experts(arch["n_experts"])
+            out += [
+                (f"{p}.moe.experts.wg", (e, d, f), dt),
+                (f"{p}.moe.experts.wu", (e, d, f), dt),
+                (f"{p}.moe.experts.wd", (e, f, d), dt),
+                (f"{p}.moe.router.w", (d, arch["n_experts"]), torch.float32),
+            ]
+        else:
+            out += _mlp(f"{p}.mlp", d, f, arch["mlp_kind"], dt)
+    out += _norm("ln_f", d, ln, dt) + [("lm_head.w", (d, v), dt)]
+    if arch["family"] == "vlm":
+        out.append(("vis_proj.w", (d, d), dt))
+    return out
+
+
+def group_of(name: str, n_layers: int) -> int:
+    """0 for the embeddings (and the vlm's projector), 1 + i for layer i,
+    n_layers + 1 for the final norm and the head."""
+    if name.startswith("layers."):
+        return 1 + int(name.split(".")[1])
+    if name.startswith(("ln_f.", "lm_head.")):
+        return n_layers + 1
+    return 0
+
+
+def _mix(x: int) -> int:
+    """splitmix64's finaliser."""
+    x = (x + 0x9E3779B97F4A7C15) & MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & MASK64
+    return x ^ (x >> 31)
+
+
+def key(seed: int, *parts: int) -> int:
+    """A 63-bit generator seed from the run's seed and the parts."""
+    x = _mix(int(seed) & MASK64)
+    for p in parts:
+        x = _mix(x ^ (int(p) & MASK64))
+    return x >> 1
+
+
+def _init(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name.endswith(".e"):
+        return x.mul_(0.02)
+    if name.endswith(".g"):
+        return x.mul_(0.1).add_(1.0)
+    if name.endswith(".b"):
+        return x.mul_(0.02)
+    return x.mul_(x.shape[-2] ** -0.5)
+
+
+def group(arch: dict, seed: int, stage: int, variant: int, index: int, device):
+    """{name: tensor} of one group, in the dtypes ``layout`` gives."""
+    items = [it for it in layout(arch) if group_of(it[0], arch["n_layers"]) == index]
+    numel = [int(torch.Size(shape).numel()) for _, shape, _ in items]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(key(seed, stage, variant, index))
+    flat = torch.randn(sum(numel), generator=gen, device=device, dtype=torch.float32)
+    out, off = {}, 0
+    for (name, shape, dt), n in zip(items, numel, strict=True):
+        out[name] = _init(name, flat[off:off + n].view(shape)).to(dt)
+        off += n
+    return out
+
+
+def fill(model: torch.nn.Module, arch: dict, seed: int, stage: int, variant: int):
+    """Copy the benchmark's weights into the program's ``model``, after
+    checking that its parameters are ``layout``'s."""
+    params = dict(model.named_parameters())
+    want = layout(arch)
+    have = [(n, tuple(p.shape), p.dtype) for n, p in params.items()]
+    if have != [(n, tuple(s), dt) for n, s, dt in want]:
+        diff = sorted(set(have) ^ {(n, tuple(s), dt) for n, s, dt in want})[:6]
+        raise RuntimeError(f"{arch['name']}: the program's parameters differ from "
+                           f"the benchmark's layout: {diff}")
+    device = next(iter(params.values())).device
+    with torch.no_grad():
+        for index in range(arch["n_layers"] + 2):
+            for name, value in group(arch, seed, stage, variant, index, device).items():
+                params[name].copy_(value)
