@@ -38,6 +38,7 @@ import time
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.analysis import sanitize
 from repro_torch.api.registry import controller_factory
 from repro_torch.api.specs import ExperimentSpec, FleetSpec
@@ -243,7 +244,9 @@ class Session:
 
     def serve(self, *, on_step=None) -> dict:
         """Run the control loop over the scenario horizon. ``on_step(env,
-        cfg, info)`` is called after each adaptation interval."""
+        cfg, info)`` is called after each adaptation interval. Each
+        interval's decision and step are ``tracing`` spans; the report's
+        ``decide_wall_s`` are the decisions' walls."""
         env = self.build_env()
         if self.controller is None:
             self.controller = self.build_controller()
@@ -261,10 +264,12 @@ class Session:
         done = False
         with self._sanitize_scope():
             while not done:
-                t0 = time.perf_counter()
-                cfg = decide(controller, env)
-                decide_walls.append(time.perf_counter() - t0)
-                _, r, done, info = env.step(cfg)
+                step = len(rewards)
+                with tracing.span("serve.decide", step=step) as sp:
+                    cfg = decide(controller, env)
+                decide_walls.append(sp.seconds)
+                with tracing.span("serve.step", step=step):
+                    _, r, done, info = env.step(cfg)
                 rewards.append(float(r))
                 configs.append([list(cfg.z), list(cfg.f), list(cfg.b)])
                 for k in _STEP_KEYS:

@@ -23,10 +23,9 @@ and hand back host values, once per observation.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.cluster.monitor import Monitor
 from repro_torch.core.controller import Observation
 from repro_torch.core.mdp import (ADAPTATION_INTERVAL, COLD_START_FRACTION, Config,
@@ -294,18 +293,18 @@ class RuntimeEnv(_ConfigEnvBase):
 
     def begin_step(self, action: Config):
         """Apply ``action`` without advancing time. Returns the pending
-        interval ``(t0, t1, switched, apply_wall_s)`` for ``finish_step``.
+        interval ``(t0, t1, switched, apply_wall_s)`` for ``finish_step``;
+        ``apply_wall_s`` is the wall of the ``runtime.apply`` span.
         Split out so a fleet can reconfigure *every* tenant before the
         shared event loop advances any of them through the interval."""
         rt = self.runtime
         self.cfg = action
         t0 = rt.now
         t1 = t0 + ADAPTATION_INTERVAL
-        wall0 = time.perf_counter()
-        switched = rt.apply_config(
-            action, cold_start=COLD_START_FRACTION * ADAPTATION_INTERVAL)
-        apply_wall_s = time.perf_counter() - wall0
-        return t0, t1, switched, apply_wall_s
+        with tracing.span("runtime.apply") as sp:
+            switched = rt.apply_config(
+                action, cold_start=COLD_START_FRACTION * ADAPTATION_INTERVAL)
+        return t0, t1, switched, sp.seconds
 
     def finish_step(self, pending):
         """Score the interval opened by ``begin_step`` after the event loop

@@ -9,6 +9,7 @@ vlm on ``decoder``, audio on ``whisper``, ssm on ``xlstm_lm``, hybrid on
 """
 from __future__ import annotations
 
+from repro_torch import tracing
 from repro_torch.models import decoder, whisper, xlstm_lm, zamba
 from repro_torch.models.config import ArchConfig
 
@@ -28,7 +29,13 @@ def init_model(seed: int, cfg: ArchConfig, **kw):
 
 
 def forward(params, batch, cfg: ArchConfig, **kw):
-    return _mod(cfg).forward(params, batch, cfg, **kw)
+    """The family's forward, between the two outer bounds of its
+    ``tracing`` kinds (the dense, moe, vlm and audio families mark the
+    kinds inside; the hybrid and ssm families are timed whole)."""
+    tracing.mark(None, batch["tokens"])
+    out = _mod(cfg).forward(params, batch, cfg, **kw)
+    tracing.mark(None, batch["tokens"])
+    return out
 
 
 def init_cache(cfg: ArchConfig, batch: int, context: int, **kw):

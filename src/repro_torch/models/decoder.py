@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from repro_torch import nn as rnn
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as col
 from repro_torch.models import remat
@@ -186,12 +187,14 @@ def forward(params: DecoderLM, batch, cfg: ArchConfig, *, window=None,
         for sp, use_moe in _sub_layers(cfg, lp):
             if h.shape[1] != S_total:                     # a sequence block: gather it
                 h = col.gather(h, "model", 1)
+            tracing.mark("attention", h)
             a, (k, v) = rnn.attention_prefill(
                 sp.attn, norm(sp.ln_attn, h),
                 n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
                 rope_theta=cfg.rope_theta, window=window, use_flash=cfg.use_flash,
                 sdpa=sdpa)
             h = h + a
+            tracing.mark("moe" if use_moe else "mlp", h)
             x = norm(sp.ln_mlp, h)
             if use_moe:
                 m, aux = rnn.moe(sp.moe, x, top_k=cfg.top_k)
@@ -212,6 +215,7 @@ def forward(params: DecoderLM, batch, cfg: ArchConfig, *, window=None,
         auxs.append(aux)
         ks.extend(sub_k)
         vs.extend(sub_v)
+    tracing.mark("head", h)
     if h.shape[1] != S_total:
         h = col.gather(h, "model", 1)
     if last_only:

@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from repro_torch import nn as rnn
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as col
 from repro_torch.models import remat
@@ -144,18 +145,22 @@ def forward(params: Whisper, batch, cfg: ArchConfig, *, window=None, shard_h=Non
     def body(lp, h):
         if h.shape[1] != S:                               # a sequence block: gather it
             h = col.gather(h, "model", 1)
+        tracing.mark("attention", h)
         a, _ = rnn.attention_prefill(
             lp.self_attn, rnn.layernorm(lp.ln_self, h),
             n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
             rope_theta=None, window=window, use_flash=cfg.use_flash, sdpa=sdpa)
         h = h + a
+        tracing.mark("cross", h)
         ck, cv = _cross_kv(lp, enc, cfg)
         h = h + _cross_apply(lp, rnn.layernorm(lp.ln_cross, h), ck, cv, cfg)
+        tracing.mark("mlp", h)
         h = h + rnn.mlp(lp.mlp, rnn.layernorm(lp.ln_mlp, h), kind="gelu")
         return h if shard_h is None else shard_h(h)
 
     for lp in params.layers:
         h = remat.layer(cfg, body, lp, h)
+    tracing.mark("head", h)
     if h.shape[1] != S:
         h = col.gather(h, "model", 1)
     if last_only:

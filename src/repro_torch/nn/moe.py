@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import tracing
 from repro_torch.distributed import collectives as col
 from repro_torch.nn.linear import Linear, _normal
 
@@ -159,13 +160,16 @@ def _dispatch_compute_combine(x, gsel, tok_idx, wg, wu, wd):
 def _aux(gsel, probs, E: int):
     """Switch-style load-balance loss + dropped-token fraction. The demand
     is ``B * S * probs.shape[-1]`` slots, which the reference writes as
-    B·S·E (its comment says B·S·k)."""
+    B·S·E (its comment says B·S·k). The slots computed and those holding a
+    token go to ``tracing.count_moe``."""
     B, S, _ = probs.shape
     used = (gsel > 0).to(torch.float32)                                   # [B,E+,C]
-    frac_tokens = used.sum(dim=(0, 2))[:E] / torch.clamp(used.sum(), min=1.0)
+    total = used.sum()
+    tracing.count_moe(used.numel(), total)
+    frac_tokens = used.sum(dim=(0, 2))[:E] / torch.clamp(total, min=1.0)
     frac_probs = torch.mean(probs, dim=(0, 1))
     lb_loss = E * torch.sum(frac_tokens * frac_probs)
-    dropped = 1.0 - used.sum() / max(B * S * probs.shape[-1], 1)
+    dropped = 1.0 - total / max(B * S * probs.shape[-1], 1)
     return {"lb_loss": lb_loss, "dropped_frac": torch.clamp(dropped, 0.0, 1.0)}
 
 

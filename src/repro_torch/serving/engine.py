@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.mdp import Config
 from repro_torch.device import resolve_device
 from repro_torch.models import api
@@ -73,12 +74,18 @@ class StageServer:
     def execute(self, z: int, tokens: np.ndarray) -> np.ndarray:
         """Run variant ``z`` on tokens [B, S] -> output tokens [B, S] int32,
         the argmax of the forward logits (the first maximal index, as in the
-        reference). Batches run at their actual size (no tail padding)."""
+        reference). Batches run at their actual size (no tail padding). Its
+        spans are ``tracing``'s ``execute`` and the three inside it."""
         z = int(z) % len(self.variants)
         cfg = self.variants[z]
-        with torch.inference_mode():
-            logits, _ = api.forward(self.params[z], self._make_batch(tokens, cfg), cfg)
-            return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        B, S = tokens.shape
+        with tracing.execute(stage=self.name, arch=cfg.name, B=B, S=S), torch.inference_mode():
+            with tracing.inner("execute.inputs"):
+                batch = self._make_batch(tokens, cfg)
+            with tracing.inner("execute.forward"):
+                logits, _ = api.forward(self.params[z], batch, cfg)
+            with tracing.inner("execute.output"):
+                return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
 
     def serve_pending(self) -> list[Request]:
         """Drain the queue; returns completed requests with stage output."""

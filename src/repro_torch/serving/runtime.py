@@ -26,7 +26,8 @@ runtimes — a multi-tenant fleet (:mod:`serving.fleet`) hosts N pipelines on
 one loop, interleaving their events in one deterministic virtual timeline.
 
 NumPy, ``heapq`` and plain Python, as in ``repro/serving/runtime.py``: the
-same seed gives the same schedule, batch log and summary bit for bit.
+same seed gives the same schedule, batch log and summary bit for bit. A
+live executor's batch is a ``tracing`` span (``runtime.batch``).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import itertools
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.mdp import Config, Pipeline, Task, placement_for
 from repro_torch.serving.batcher import ContinuousBatcher, Request, stack_tokens
 from repro_torch.serving.telemetry import Telemetry
@@ -383,11 +385,14 @@ class ServingRuntime:
         stage.release_replica(replica)
         stage.served += len(reqs)
         if stage.executor is not None:
-            out = np.asarray(stage.executor(
-                z, stack_tokens(reqs, stage.seq_len)))
-            for k, req in enumerate(reqs):
-                req.stage_outputs.append(out[k])
-                req.result = out[k]
+            with tracing.span("runtime.batch", stage=i, variant=z, rows=len(reqs)) as sp:
+                if sp.on:
+                    sp.attrs["rids"] = [req.rid for req in reqs]
+                out = np.asarray(stage.executor(
+                    z, stack_tokens(reqs, stage.seq_len)))
+                for k, req in enumerate(reqs):
+                    req.stage_outputs.append(out[k])
+                    req.result = out[k]
         else:
             for req in reqs:
                 req.stage_outputs.append(req.tokens)
