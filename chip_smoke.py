@@ -181,7 +181,14 @@ the families' shapes in both dtypes, timed: flash B4 S32 H32 Hkv32 D80
 (zamba2's shared block, g = 1), B4 S32 H24 Hkv8 D64 (granite-moe, g = 3)
 and B1 S608 H32 Hkv8 D128 (llava's prefill), decode B4 H32 Hkv32 D80 and
 B4 H24 Hkv8 D64 at C32 (1/9/17/32 valid) and B1 H32 Hkv8 D128 C640,
-and flash at granite-3-8b's B4 S32 H32 Hkv8 D128 in both dtypes, timed.
+and flash at granite-3-8b's B4 S32 H32 Hkv8 D128 in both dtypes, timed;
+and the MoE combine kernel (moe_combine) bit for bit against its plain
+version at granite-moe's layer in both cells (B32 S448, E 40 padded to 48,
+C 112, d 1536, routed by the layer's router on random tokens), at B8 S448
+and at a decode step (B32 S1), in f32 and bf16, timed beside its byte bound,
+the plain version and the port's earlier fill-scatter-sum combine that it
+replaces (replaced_ms). The serves check moe_combine launches = MoE layers x
+forwards.
 The last two lines are the kernel summary and the device line, as JSON.
 Imports only torch, numpy and the port (never jax or the JAX package).
 """
@@ -265,11 +272,18 @@ FAMILY_DEC = [(4, 32, 32, 80, 32, GRID_NV), (4, 24, 8, 64, 32, GRID_NV),
               (1, 32, 8, 128, 640, 616)]            # (B, H, Hkv, D, C, nv)
 # paper-4stage's stage 3: granite-3-8b's serving prefill (g = 4, D = 128)
 PAPER4_FA = [(4, 32, 32, 8, 128)]
+# granite-moe's MoE layer (d 1536, 40 experts padded to 48, top-8, capacity
+# factor 1.25): both cells' batch of 32 x 448 (C 112), a batch of 8 and a
+# decode step (C 1); (B, S)
+MOE_COMBINE_SHAPES = [(32, 448), (8, 448), (32, 1)]
 SASS_OPS = ("HGMMA", "HMMA")
 SOURCES = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:111"),
            "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                                "src/repro/kernels/decode_attention.py:91")}
+                                "src/repro/kernels/decode_attention.py:91"),
+           "moe_combine": ("src/repro_torch/kernels/csrc/moe_combine.cu",
+                           "none: the JAX package's MoE combine is plain jnp "
+                           "(src/repro/nn/moe.py:89)")}
 
 
 def instance_name(mangled: str) -> str:
@@ -497,6 +511,59 @@ def mixed_decode_case(timer, gen, B, H, Hkv, D, C, n_valid):
     return row, ok
 
 
+def scatter_sum_combine(ye, gsel, tok_idx, S: int, out_dtype):
+    """The port's combine before the kernel, as a yardstick only: the gated
+    outputs scattered into a zero-filled f32 [B, E, S, d] buffer, summed over
+    E, cast to ``out_dtype``."""
+    B, E, C, d = ye.shape
+    ye = ye * (gsel * (gsel > 0))[..., None].to(ye.dtype)
+    buf = torch.zeros((B, E, S, d), dtype=torch.float32, device=ye.device)
+    buf.scatter_(2, tok_idx[..., None].expand(B, E, C, d), ye.to(torch.float32))
+    return buf.sum(dim=1).to(out_dtype)
+
+
+def moe_combine_case(timer, gen, B, S, dtype):
+    """moe_combine at granite-moe's layer (B, S): the dispatch plan from the
+    layer's own router on random tokens, ye in the expert FFN's layout (E
+    outermost), the output in ye's dtype as the serving path asks. Bit for
+    bit against the plain version; timed beside the byte bound (the used
+    rows of ye, slot_of, gsel, y written once), the plain version and the
+    scatter-and-sum combine it replaced."""
+    import importlib
+
+    from repro_torch import nn as tnn
+    from repro_torch.kernels import ops, ref
+    moe_mod = importlib.import_module("repro_torch.nn.moe")
+    d, E, k = 1536, 40, 8
+    params = tnn.MoE(d, 512, E, device="cuda", generator=gen)
+    x = randn(gen, (B, S, d), torch.float32)
+    gsel, tok_idx, _, C = moe_mod._route(params, x, top_k=k, capacity_factor=1.25,
+                                         E_phys=moe_mod._phys_experts(E))
+    gsel = gsel.contiguous()
+    slot_of = moe_mod._slot_of(tok_idx, gsel, S)
+    Ep = gsel.shape[1]
+    ye = randn(gen, (Ep, B, C, d), dtype).transpose(0, 1)
+    out = ops.moe_combine(ye, gsel, slot_of)
+    want = ref.moe_combine_ref(ye, gsel, slot_of)
+    old = scatter_sum_combine(ye, gsel, tok_idx, S, dtype)
+    torch.cuda.synchronize()
+    used = int((gsel > 0).sum().item())
+    elt = ye.element_size()
+    nbytes = used * d * elt + slot_of.numel() * 4 + gsel.numel() * 4 + B * S * d * elt
+    b_ms, b_by = bound_ms(nbytes, 2.0 * used * d, dtype)
+    row = {"kernel": "moe_combine", "shape": [B, S, Ep, C, d], "dtype": str(dtype)[6:],
+           "slots_used": used, "slots": gsel.numel(),
+           "max_abs_err": (out.float() - want.float()).abs().max().item(),
+           "bitwise": bool(torch.equal(out, want)),
+           "vs_replaced_max_abs": (out.float() - old.float()).abs().max().item(),
+           "ms": timer.ms(lambda: ops.moe_combine(ye, gsel, slot_of)),
+           "plain_ms": timer.ms(lambda: ref.moe_combine_ref(ye, gsel, slot_of)),
+           "replaced_ms": timer.ms(lambda: scatter_sum_combine(ye, gsel, tok_idx, S, dtype)),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    row["share_of_bound"] = b_ms / row["ms"]
+    return row, row["bitwise"] and out.dtype == dtype
+
+
 def phase_kernels(timer) -> dict[str, dict]:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
@@ -525,6 +592,8 @@ def phase_kernels(timer) -> dict[str, dict]:
         for name in ("holes", "single_slot"):
             rows.append(decode_case(timer, gen, *DEC_RAGGED_SHAPE, None, dtype, mask=name))
         rows.append(decode_case(timer, gen, *DEC_RAGGED_SHAPE, 999, dtype))
+        for B, S in MOE_COMBINE_SHAPES:
+            rows.append(moe_combine_case(timer, gen, B, S, dtype))
     rows.append(decode_case(timer, gen, 3, 8, 4, 64, 512, [37, 512, 256], torch.float32))
     rows.append(decode_case(timer, gen, 2, 8, 2, 64, 256, [0, 100], torch.float32))
     for shape in MIXED_DEC:
@@ -638,6 +707,14 @@ def attention_layers(cfg) -> int:
     if cfg.family == "ssm":
         return 0
     return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+
+
+def moe_layers(cfg) -> int:
+    """MoE layers per forward or decode step: every layer of a MoE model, or
+    every ``moe_every``-th with the interleave."""
+    if not cfg.n_experts:
+        return 0
+    return cfg.n_layers // cfg.moe_every if cfg.moe_every > 1 else cfg.n_layers
 
 
 def phase_serve() -> tuple[dict, object]:
@@ -794,7 +871,8 @@ def serve_live(sess, virtual: dict, tag: str,
     """``sess.serve()`` of a real session with every live stage's executor
     recorded. Checks: every request served, the virtual-time results equal
     ``virtual`` (the same spec with real=False), flash launches = Σ n_layers
-    over the executed batches of attention variants, no decode launch, every
+    over the executed batches of attention variants, moe_combine launches =
+    Σ MoE layers over the executed batches, no decode launch, every
     stage executed and each variant of it (``all_variants``), and the kernel
     path's logits against the plain attention path for each variant of each
     stage (on its first batch, or on the stage's first batch where the
@@ -869,6 +947,9 @@ def serve_live(sess, virtual: dict, tag: str,
     want = sum(attention_layers(servers[i].variants[z]) for i, z, *_ in batches)
     check(counts["flash_attention"] == want,
           f"{tag}: flash launches {counts['flash_attention']} != {want}")
+    want = sum(moe_layers(servers[i].variants[z]) for i, z, *_ in batches)
+    check(counts["moe_combine"] == want,
+          f"{tag}: moe_combine launches {counts['moe_combine']} != {want}")
     check(counts["decode_attention"] == 0, f"{tag}: decode kernel launched while serving")
 
     cases = []                      # (stage, variant, batch index whose tokens feed it)
@@ -1596,7 +1677,7 @@ def bf16_stage() -> dict:
           f"{time.perf_counter() - t0:.1f}s: {weights_gib(server.params):.2f} GiB of "
           f"weights", flush=True)
     rng = np.random.default_rng(18)
-    counts = {"flash_attention": 0, "decode_attention": 0}
+    counts = {"flash_attention": 0, "decode_attention": 0, "moe_combine": 0}
     for z, cfg in enumerate(variants):
         model = server.params[z]
         # prefill, then decode from its cache
@@ -1662,7 +1743,7 @@ def phase_families() -> dict:
     from repro_torch import api
     from repro_torch.cluster import executor
 
-    counts = {"flash_attention": 0, "decode_attention": 0}
+    counts = {"flash_attention": 0, "decode_attention": 0, "moe_combine": 0}
     for controller, seed, horizon, every in FAMILY_SERVE:
         spec = api.ExperimentSpec(
             pipeline=api.get_pipeline("serve3"),
@@ -1698,7 +1779,8 @@ def phase_families() -> dict:
             for b in (1, 32):
                 t = launched(counts, ex.measure, arch, b, quant)
                 check(t.launches == {"flash_attention": 0,
-                                     "decode_attention": attention_layers(cfg)},
+                                     "decode_attention": attention_layers(cfg),
+                                     "moe_combine": moe_layers(cfg)},
                       f"families: {arch}:{quant} b{b} captured launches {t.launches}")
                 print(f"families: {arch}:{quant} b{b}: graph replay {t.latency_s * 1e3:.4f} "
                       f"ms, eager {t.eager_latency_s * 1e3:.4f} ms (min of 5), capture "
@@ -2496,8 +2578,9 @@ def phase_mesh() -> dict:
           f"backend {backend_for('cuda', 2)}, {len(ranks)} ranks, launch wall {wall:.1f} s",
           flush=True)
     check(max(errs.values()) <= MESH_TOL, f"mesh: sharded vs one rank {errs}")
-    counts = {k: sum(r["launches"][k] for r in ranks) for k in ("flash_attention",
-                                                                 "decode_attention")}
+    counts = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    check(all(r["launches"]["moe_combine"] > 0 for r in ranks),
+          f"mesh: a {MESH_ARCH} rank launched no moe_combine")
 
     t = time.perf_counter()
     cases = [(arch, over, {}) for arch, over, _ in MESH_FAMILIES]
@@ -2705,9 +2788,11 @@ def phase_mesh_train() -> dict:
               f"{slow:.1f} ms; {one}", flush=True)
     print(f"mesh_train: one launch of {len(ranks)} ranks for {len(MESH_TRAIN)} models: "
           f"{wall:.1f} s", flush=True)
-    check(ops.launch_counts() == before,
-          f"mesh_train: the phase launched attention kernels {ops.launch_counts()}")
-    return {"flash_attention": 0, "decode_attention": 0}
+    after = ops.launch_counts()
+    check(all(after[k] == before[k] for k in ("flash_attention", "decode_attention")),
+          f"mesh_train: the phase launched attention kernels {after}")
+    # granite-moe's one-rank reference trains on the card in this process
+    return {k: after[k] - before[k] for k in after}
 
 
 BENCH_OUT = "chiprun_out/bench_smoke"
@@ -2858,22 +2943,17 @@ def run_all(smi: str):
         stop(count[0])
     bench_counts = timed("bench", phase_bench)
 
+    phases = {"serve": serve_counts, "decode": decode_counts, "runtime": runtime_counts,
+              "opd": opd_counts, "forecast": forecast_counts, "calibrate": calibrate_counts,
+              "families": families_counts, "paper4": paper4_counts, "twin": twin_counts,
+              "train": train_counts, "figures": figures_counts, "mesh": mesh_counts,
+              "mesh_train": mesh_train_counts, "dryrun": dryrun_counts, "bench": bench_counts}
     kernels = []
     for name in build.KERNELS:
-        launches = (serve_counts[name] + decode_counts[name] + runtime_counts[name]
-                    + opd_counts[name] + forecast_counts[name] + calibrate_counts[name]
-                    + families_counts[name] + paper4_counts[name] + twin_counts[name]
-                    + train_counts[name] + figures_counts[name] + mesh_counts[name]
-                    + mesh_train_counts[name] + dryrun_counts[name] + bench_counts[name])
-        print(f"launches {name}: serve {serve_counts[name]}, decode {decode_counts[name]}, "
-              f"runtime {runtime_counts[name]}, opd {opd_counts[name]}, forecast "
-              f"{forecast_counts[name]}, calibrate {calibrate_counts[name]}, families "
-              f"{families_counts[name]}, paper4 {paper4_counts[name]}, twin "
-              f"{twin_counts[name]}, train {train_counts[name]}, figures "
-              f"{figures_counts[name]}, mesh {mesh_counts[name]}, mesh_train "
-              f"{mesh_train_counts[name]}, dryrun "
-              f"{dryrun_counts[name]}, bench "
-              f"{bench_counts[name]}", flush=True)
+        each = {ph: c.get(name, 0) for ph, c in phases.items()}
+        launches = sum(each.values())
+        print(f"launches {name}: " + ", ".join(f"{ph} {n}" for ph, n in each.items()),
+              flush=True)
         check(launches > 0, f"{name} never launched on the main path")
         row = summary[name]
         src, replaces = SOURCES[name]
@@ -2882,6 +2962,7 @@ def run_all(smi: str):
                         "max_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                        "replaced_ms": row.get("replaced_ms"),
                         "shape": row["shape"], "dtype": row["dtype"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

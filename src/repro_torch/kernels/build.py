@@ -18,7 +18,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-KERNELS = ("flash_attention", "decode_attention")
+KERNELS = ("flash_attention", "decode_attention", "moe_combine")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,9 +1,11 @@
-"""Attention entry points that route by tensor device.
+"""Kernel entry points that route by tensor device: attention, and the
+MoE layer's gated combine.
 
 A CUDA tensor launches the hand-written Hopper kernel (or the wrapper
 raises); a CPU tensor takes the kernel's plain version from ``ref.py``.
-There is no fallback from one to the other. The reference routes by JAX
-backend instead (interpret mode on the CPU).
+There is no fallback from one to the other. The reference routes its
+attention by JAX backend instead (interpret mode on the CPU); its MoE
+combine is plain ``jnp``.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_combine as _mc
 from repro_torch.kernels import ref
 
 
@@ -54,11 +57,24 @@ def decode_attention(q, k, v, valid_mask, *, return_lse: bool = False):
     return out.to(out_dtype)
 
 
+def moe_combine(ye, gsel, slot_of, *, out_dtype=None):
+    """ye [B, E, C, d]; gsel [B, E, C] f32; slot_of [B, E, S] int32 (the slot
+    that token s holds in expert e, or -1) -> y [B, S, d] in ``out_dtype``
+    (float32 or ye's dtype, the default): each token's gated expert outputs
+    added in f32 (``ref.moe_combine_ref`` says how). Differentiable in ye and
+    gsel on both routes."""
+    if _on_cuda(ye):
+        return _mc.combine(ye, gsel, slot_of, out_dtype=out_dtype)
+    return ref.moe_combine_ref(ye, gsel, slot_of, out_dtype=out_dtype)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel name."""
-    return {"flash_attention": _fa.launches, "decode_attention": _da.launches}
+    return {"flash_attention": _fa.launches, "decode_attention": _da.launches,
+            "moe_combine": _mc.launches}
 
 
 def reset_launch_counts() -> None:
     _fa.launches = 0
     _da.launches = 0
+    _mc.launches = 0

@@ -5,7 +5,11 @@ Dispatch gathers, per expert, its top-C tokens by gate (``_route``), runs
 the SwiGLU FFN on the stacked expert weights ``[E_phys, d, f]`` and adds
 the gated outputs back in float32 (``_dispatch_compute_combine``): ``[E,
 C]`` indices and ``[E, C, d]`` activations, never a one-hot ``[T, E, C]``
-dispatch tensor.
+dispatch tensor. The combine is ``kernels.ops.moe_combine``: each token
+adds the gated rows of the slots it holds (``_slot_of``), in ascending
+expert order in float32, one writer an output element and no atomics, so
+the card gives the same bits on every run; on a CUDA tensor the
+hand-written kernel, which reads only the slots that hold a token.
 
 Under a running mesh (``distributed.collectives``) a rank holds the block
 of the stacked experts that the rules give it, read off the weights'
@@ -56,6 +60,7 @@ from torch import nn
 
 from repro_torch import tracing
 from repro_torch.distributed import collectives as col
+from repro_torch.kernels import ops
 from repro_torch.nn.linear import Linear, _normal
 
 
@@ -137,24 +142,29 @@ def _expert_ffn(xe, wg, wu, wd):
     return torch.einsum("becf,efd->becd", h, wd)
 
 
-def _dispatch_compute_combine(x, gsel, tok_idx, wg, wu, wd):
-    """Gather tokens per expert, run the FFN, add the gated outputs back.
-    x [B, S, d]; gsel/tok_idx [B, E, C] -> y [B, S, d] (float32).
+def _slot_of(tok_idx, gsel, S: int):
+    """The combine's index [B, E, S] int32: the slot c that token s holds in
+    expert e (``tok_idx[b, e, c] == s`` with a gate > 0), or -1. An expert's C
+    tokens are distinct, so the one scatter collides nowhere."""
+    B, E, C = tok_idx.shape
+    slots = torch.arange(C, dtype=torch.int32, device=tok_idx.device).expand(B, E, C)
+    out = torch.full((B, E, S), -1, dtype=torch.int32, device=tok_idx.device)
+    return out.scatter_(2, tok_idx, torch.where(gsel > 0, slots, -1))
 
-    The reference scatter-adds. Here an expert's C tokens are distinct, so
-    its outputs are scattered without a collision into a [B, E, S, d]
-    buffer that is then summed over E in a fixed order: the same sum
-    without atomics, so the card gives the same bits on every run."""
-    B, S, d = x.shape
-    E, C = tok_idx.shape[1:]
-    rows = torch.arange(B, device=x.device)[:, None, None]
+
+def _dispatch_compute_combine(x, gsel, tok_idx, wg, wu, wd, *, out_dtype=None):
+    """Gather tokens per expert, run the FFN, add the gated outputs back.
+    x [B, S, d]; gsel/tok_idx [B, E, C] -> y [B, S, d] in ``out_dtype``
+    (default x's dtype), summed in float32.
+
+    The reference scatter-adds; here each token adds its own slots in
+    ascending expert order (``kernels.ops.moe_combine``)."""
+    S = x.shape[1]
+    rows = torch.arange(x.shape[0], device=x.device)[:, None, None]
     xe = x[rows, tok_idx]                                                 # [B,E,C,d]
     ye = _expert_ffn(xe, wg.to(xe.dtype), wu.to(xe.dtype), wd.to(xe.dtype))
-    ye = ye * (gsel * (gsel > 0))[..., None].to(ye.dtype)
-    dt = torch.promote_types(ye.dtype, torch.float32)
-    per_expert = torch.zeros((B, E, S, d), dtype=dt, device=x.device)
-    per_expert.scatter_(2, tok_idx[..., None].expand(B, E, C, d), ye.to(dt))
-    return per_expert.sum(dim=1)
+    return ops.moe_combine(ye, gsel.contiguous(), _slot_of(tok_idx, gsel, S),
+                           out_dtype=out_dtype)
 
 
 def _aux(gsel, probs, E: int):
@@ -203,7 +213,7 @@ def moe(params: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
         gsel, tok_idx, probs, _ = _route(params, x, top_k=top_k,
                                          capacity_factor=capacity_factor, E_phys=E_phys)
         y = _dispatch_compute_combine(x, gsel, tok_idx, wg, wu, wd)
-        return y.to(x.dtype), (_aux(gsel, probs, E) if need_aux else None)
+        return y, (_aux(gsel, probs, E) if need_aux else None)
     bax = col.batch_axes()
     two_d = ep2d and wg.shape[0] < E_phys and wg.shape[2] < params.hidden
     if wg.shape[1] < x.shape[-1]:            # FSDP blocks of a 100B+ train/prefill
@@ -218,8 +228,10 @@ def moe(params: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
     group = ("model", "data") if two_d else "model"
     # the rank's experts (or d_ff block) use the tokens and gates in their
     # own way: both pass through copy, so their gradients sum over the group
+    # the psum adds the ranks' partial sums in float32
+    acc = torch.promote_types(x.dtype, torch.float32)
     y = _dispatch_compute_combine(col.copy(xr, group), col.copy(gsel, group)[:, e0:e0 + El],
-                                  tok_idx[:, e0:e0 + El], wg, wu, wd)
+                                  tok_idx[:, e0:e0 + El], wg, wu, wd, out_dtype=acc)
     y = col.psum(y, group)
     if two_d and bax:
         y = col.block(y, bax, 0)

@@ -20,6 +20,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as tda  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import moe_combine as tmc  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-3),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 4e-2)}
@@ -151,10 +152,12 @@ def test_ops_rejects_devices_other_than_cuda_and_cpu():
 
 
 def test_reset_launch_counts():
-    tfa.launches, tda.launches = 3, 5
-    assert ops.launch_counts() == {"flash_attention": 3, "decode_attention": 5}
+    tfa.launches, tda.launches, tmc.launches = 3, 5, 7
+    assert ops.launch_counts() == {"flash_attention": 3, "decode_attention": 5,
+                                   "moe_combine": 7}
     ops.reset_launch_counts()
-    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
+                                   "moe_combine": 0}
 
 
 def test_build_targets_sm90a_and_keys_by_source(monkeypatch, tmp_path):
