@@ -23,10 +23,10 @@ host-clock figures of a traced run come from the rest of its window.
 After the window the peak is read, the program's state is freed and the
 checks run: the accounting of requests against the traffic generator, and
 the plain reference over a sample, drawn from the seed, of the rows of every
-variant that ran (``reference``): for each, the widest gap by which a served
-token's reference logit lies below the reference's best and, where the
-configuration gives it a limit (``trim_limits``), the mean of the gaps up
-to their 95th percentile.
+variant that ran (``reference``, each architecture through its reference
+module): for each, the widest gap by which a served token's reference logit
+lies below the reference's best and, where the configuration gives it a
+limit (``trim_limits``), the mean of the gaps up to their 95th percentile.
 """
 
 from __future__ import annotations
@@ -173,24 +173,22 @@ class Cell:
             build.build(build.KERNELS)
             self.log(f"set-up: kernels built or found in {time.perf_counter() - t:.3f} s")
         if self.servers is None:
+            # on the card the file's sizes are the program's own, but for the cuts
+            # it states (the CPU tests run cut-down copies)
+            errors = spec.size_errors(self.config, ARCHS) if self.device.type == "cuda" else []
+            if errors:
+                raise RuntimeError("the configuration file differs from the program's "
+                                   "published sizes: " + "; ".join(errors))
             self.servers = []
             for i, names in enumerate(self.config["stages"]):
                 variants = [ArchConfig(**self.config["archs"][n]) for n in names]
-                for n, v in zip(names, variants, strict=True):
-                    # on the card the file's sizes are the program's own (the CPU
-                    # tests run cut-down copies)
-                    if n in ARCHS and self.device.type == "cuda":
-                        want = ARCHS[n].replace(dtype=self.config["dtype"])
-                        if v != want:
-                            raise RuntimeError(f"{n}: the configuration file differs from "
-                                               f"the program's published sizes")
                 self.servers.append(StageServer(
                     f"stage{i}", variants, seq_len=self.traffic["seq_len"],
                     seed=weights.key(seed, i) % 2**31, device=self.device))
         for i, server in enumerate(self.servers):
             for z, arch in enumerate(self.archs(i)):
-                if weights.supported(arch):
-                    weights.fill(server.params[z], arch, seed, i, z)
+                if weights.supported(arch, self.config, self.root):
+                    weights.fill(server.params[z], arch, seed, i, z, self.config, self.root)
         self.seed = seed
 
     def spec(self, horizon: int, seed: int):
@@ -376,18 +374,20 @@ class Cell:
         for (stage, z), chosen in self.sample(window).items():
             arch = self.archs(stage)[z]
             name = arch["name"]
-            if not weights.supported(arch):
+            if not weights.supported(arch, self.config, self.root):
                 unchecked += 1
                 continue
             tokens = np.stack([b.tokens[r] for b, r in chosen])
             served = np.stack([b.out[r] for b, r in chosen])
             rows_ = [(b.size, r) for b, r in chosen]
             with torch.no_grad():
-                ref = reference.logits(arch, window["seed"], stage, z, tokens, rows_, self.device)
+                ref = reference.logits(arch, window["seed"], stage, z, tokens, rows_, self.device,
+                                       config=self.config, root=self.root)
                 d = {"program": reference.gap_stats(ref, served)}
                 if control:
                     low = reference.logits(arch, window["seed"], stage, z, tokens, rows_,
-                                           self.device, quant="fp8")
+                                           self.device, quant="fp8", config=self.config,
+                                           root=self.root)
                     d["control"] = reference.gap_stats(ref, low.argmax(-1).cpu().numpy())
                     del low
                 del ref
@@ -420,7 +420,7 @@ def context(cell: Cell, window: dict, acc: dict) -> dict:
     cut = (span["start"], span["resumed"]) if "resumed" in span else None
     batches = [b for b in rec.batches if b.t0 < t1]
     host = [b for b in batches if cut is None or not (b.t1 > cut[0] and b.t0 < cut[1])]
-    ctx = {"cell": cell.cell, "config": cell.config, "archs": cell.archs,
+    ctx = {"cell": cell.cell, "config": cell.config, "root": cell.root, "archs": cell.archs,
            "window_s": window["seconds"], "batches": batches, "host_batches": host,
            "host_window_s": window["seconds"] - (cut[1] - cut[0] if cut else 0.0),
            "window": (t0, t1), "service_s": acc["service_s"],

@@ -13,11 +13,15 @@ def read(ctx):
     if tr is None:
         return None
     kernel_s = sum(e - s for s, e, name in tr["device"] if KERNEL in name) / 1e9
-    calls = [
-        c
-        for b in tr["batches"]
-        for c in counts.flash_calls(ctx["archs"](b.stage)[b.variant], b.size, b.tokens.shape[1])
-    ]
+    try:
+        calls = [
+            c
+            for b in tr["batches"]
+            for c in counts.flash_calls(ctx["archs"](b.stage)[b.variant], b.size,
+                                        b.tokens.shape[1], ctx["config"], ctx["root"])
+        ]
+    except ValueError:
+        return None
     launches = sum(1 for *_, name in tr["device"] if KERNEL in name)
     if not calls or kernel_s <= 0 or launches != len(calls):
         return None

@@ -11,7 +11,8 @@ def read(ctx):
     done = [b for b in ctx["host_batches"] if b.t1 <= t1]
     try:
         ops = sum(
-            counts.forward_flops(ctx["archs"](b.stage)[b.variant], b.size, b.tokens.shape[1])
+            counts.forward_flops(ctx["archs"](b.stage)[b.variant], b.size, b.tokens.shape[1],
+                                 ctx["config"], ctx["root"])
             for b in done
         )
     except ValueError:

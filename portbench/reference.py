@@ -2,16 +2,18 @@
 float32 with plain ``torch`` operations, layer by layer from the weights that
 ``weights`` makes again from the run's seed.
 
-It follows the port's published description (``src/repro_torch/models``): a
-pre-norm decoder (RMSNorm eps 1e-6 or LayerNorm eps 1e-5; half-split RoPE;
-grouped-query causal attention; SwiGLU or tanh-GELU MLP; a top-k MoE whose
-router is float32, its top-k gates renormalised, each expert taking at most
+Each architecture's forward is in its reference module,
+``portbench/archs/<module>.py`` (``spec.reference_module``: ``decoder`` for the
+dense, moe and vlm families, ``whisper`` for audio, or the one its
+configuration names); ``logits`` calls it. The parts they share are here:
+RMSNorm (eps 1e-6) and LayerNorm (eps 1e-5), half-split RoPE, grouped-query
+attention, the SwiGLU and tanh-GELU MLPs, and a top-k MoE whose router is
+float32, its top-k gates renormalised, each expert taking at most
 C = int(1.25 * S * k / E) tokens of a row, the highest gates first, ties to the
-earlier token); the vlm prepends its projected patch embeddings; the whisper
-decoder adds learned positions and cross-attends to its encoder frames. The
-stub frontends' inputs are made as the port's ``StageServer`` makes them: f32
-normal, std 0.02, from a generator seeded 0 (patches) or 1 (frames), at the
-batch's own size, then rounded to the weights' dtype.
+earlier token. The stub frontends' inputs are made as the port's
+``StageServer`` makes them: f32 normal, std 0.02, from a generator seeded 0
+(patches) or 1 (frames), at the batch's own size, then rounded to the
+weights' dtype.
 
 Nothing here imports the program or JAX; it reads nothing the program made.
 ``quant="fp8"`` is the control, the reference computed one precision below
@@ -23,12 +25,13 @@ one scale a row, as an fp8 GEMM takes them; products accumulate in f32.
 from __future__ import annotations
 
 import math
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from portbench import weights as W
+from portbench import spec, weights as W
 
 
 def _fp8(x: torch.Tensor, dims=None) -> torch.Tensor:
@@ -43,10 +46,11 @@ def _mm(x: torch.Tensor, w: torch.Tensor, p: dict) -> torch.Tensor:
     return (_fp8(x, (-1,)) if p["fp8"] else x) @ w
 
 
-def _weights(arch, seed, stage, variant, index, device, quant):
-    """One group's weights in f32, keyed by name, and ``fp8``: the control's."""
+def _weights(arch, seed, stage, variant, index, device, quant, params):
+    """One group's weights in f32, keyed by name, and ``fp8``: the control's;
+    ``params`` is the architecture's layout."""
     out = {"fp8": quant == "fp8"}
-    for name, w in W.group(arch, seed, stage, variant, index, device).items():
+    for name, w in W.group(arch, seed, stage, variant, index, device, params).items():
         w = w.to(torch.float32)
         out[name] = _fp8(w) if out["fp8"] and w.dim() >= 2 else w
     return out
@@ -107,15 +111,6 @@ def _self_attention(p, prefix, x, arch):
     return _lin(p, f"{prefix}.wo", _attend(q, k, v, True))
 
 
-def _cross_attention(p, prefix, x, enc, arch):
-    B, S, _ = x.shape
-    hd = arch["d_model"] // arch["n_heads"]
-    q = _lin(p, f"{prefix}.wq", x).view(B, S, -1, hd)
-    k = _lin(p, f"{prefix}.wk", enc).view(B, enc.shape[1], -1, hd)
-    v = _lin(p, f"{prefix}.wv", enc).view(B, enc.shape[1], -1, hd)
-    return _lin(p, f"{prefix}.wo", _attend(q, k, v, False))
-
-
 def _mlp(p, prefix, x, kind):
     if kind == "swiglu":
         h = F.silu(_lin(p, f"{prefix}.wg", x)) * _lin(p, f"{prefix}.wu", x)
@@ -156,45 +151,20 @@ def stub_inputs(batch: int, rows, shape, seed: int, device, dtype):
     return (full[list(rows)] * 0.02).to(dtype).to(torch.float32)
 
 
+def stub_rows(batch_rows, shape, seed: int, device, dtype):
+    """The stub frontend's inputs of the rows ``batch_rows`` [(batch size,
+    row)], each made at its own batch's size."""
+    return torch.cat([stub_inputs(b, [r], shape, seed, device, dtype) for b, r in batch_rows])
+
+
 def logits(arch: dict, seed: int, stage: int, variant: int, tokens: np.ndarray,
-           batch_rows: list[tuple[int, int]], device, quant: str | None = None):
+           batch_rows: list[tuple[int, int]], device, quant: str | None = None,
+           config: dict | None = None, root: Path = spec.ROOT):
     """Reference logits [k, S_total, vocab] (f32) of ``tokens`` [k, S], the
     inputs the stage received; ``batch_rows`` gives each row's (batch size,
     row) in the batch that carried it, for the stub frontends' inputs."""
-    if not W.supported(arch):
-        raise ValueError(f"the reference does not cover {arch['name']}")
-    dt = W.DTYPES[arch["dtype"]]
-
-    def group(i):
-        return _weights(arch, seed, stage, variant, i, device, quant)
-
-    def stubs(shape, stub_seed):
-        return torch.cat([stub_inputs(b, [r], shape, stub_seed, device, dt) for b, r in batch_rows])
-
-    L = arch["n_layers"]
-    tok = torch.as_tensor(np.asarray(tokens, dtype=np.int64) % arch["vocab"], device=device)
-    p = group(0)
-    h = p["embed.e"][tok]
-    audio = arch["family"] == "audio"
-    if audio:
-        h = h + p["pos.e"][torch.arange(tok.shape[1], device=device) % W.WHISPER_POSITIONS]
-        enc = stubs((arch["enc_len"], arch["d_model"]), 1)
-    if arch["family"] == "vlm":
-        vis = _mm(stubs((arch["n_patches"], arch["d_model"]), 0), p["vis_proj.w"], p)
-        h = torch.cat([vis, h], dim=1)
-    for i in range(L):
-        p = group(1 + i)
-        pre = f"layers.{i}"
-        if audio:
-            h = h + _self_attention(p, f"{pre}.self_attn", _norm(p, f"{pre}.ln_self", h), arch)
-            h = h + _cross_attention(p, f"{pre}.cross_attn", _norm(p, f"{pre}.ln_cross", h), enc, arch)
-            h = h + _mlp(p, f"{pre}.mlp", _norm(p, f"{pre}.ln_mlp", h), "gelu")
-            continue
-        h = h + _self_attention(p, f"{pre}.attn", _norm(p, f"{pre}.ln_attn", h), arch)
-        x = _norm(p, f"{pre}.ln_mlp", h)
-        h = h + (_moe(p, f"{pre}.moe", x, arch) if arch["n_experts"] else _mlp(p, f"{pre}.mlp", x, arch["mlp_kind"]))
-    p = group(L + 1)
-    return _mm(_norm(p, "ln_f", h), p["lm_head.w"], p)
+    mod = spec.reference_for(arch, config, root)
+    return mod.logits(arch, seed, stage, variant, tokens, batch_rows, device, quant)
 
 
 def gaps(ref: torch.Tensor, served: np.ndarray) -> torch.Tensor:

@@ -33,7 +33,8 @@ def reduce_arch(a: dict) -> dict:
 def make_root(tmp: Path, workload: str = "edge4.steady120", *, limit: float = 1.0,
               rate: float | None = None, seq_len: int = 16, dtype: str = "float32") -> Path:
     """A checkout-like folder holding BENCHMARK.json, the cell's configuration
-    (in ``dtype``) and traffic at smoke size, and the metric readers."""
+    (in ``dtype``) and traffic at smoke size, the metric readers and the
+    reference modules."""
     bench = spec.load_benchmark()
     cell = spec.find_cell(bench, workload)
     cfg = spec.load_config(bench, cell["config"])
@@ -45,7 +46,8 @@ def make_root(tmp: Path, workload: str = "edge4.steady120", *, limit: float = 1.
     pb = Path(tmp) / "portbench"
     for sub in ("configs", "traffic"):
         (pb / sub).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(spec.HERE / "metrics", pb / "metrics", dirs_exist_ok=True)
+    for sub in ("metrics", "archs"):
+        shutil.copytree(spec.HERE / sub, pb / sub, dirs_exist_ok=True)
     entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
     (Path(tmp) / entry["file"]).write_text(json.dumps(cfg))
     (pb / "traffic" / f"{cell['traffic']}.json").write_text(json.dumps(traffic))

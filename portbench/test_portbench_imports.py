@@ -1,7 +1,8 @@
 """What the benchmark loads: no module whose top-level name (the part before
 the first dot, compared whole, since ``repro_torch`` begins with ``repro``)
 is ``jax``, ``jaxlib``, ``flax``, the JAX package ``repro`` or the JAX
-package's ``benchmarks``; and the reference loads nothing of the program.
+package's ``benchmarks``; and the reference, with every reference module
+under ``portbench/archs/``, loads nothing of the program.
 Each check runs in a fresh interpreter, as a run does."""
 
 import json
@@ -30,7 +31,12 @@ def loaded(body: str) -> set[str]:
 
 
 def test_reference_loads_neither_jax_nor_the_program():
-    mods = loaded("import portbench.reference, portbench.weights, portbench.counts")
+    mods = loaded("import portbench.reference, portbench.weights, portbench.counts\n"
+                  "from portbench import spec\n"
+                  "paths = sorted((spec.HERE / 'archs').glob('*.py'))\n"
+                  "assert paths\n"
+                  "for path in paths:\n"
+                  "    assert spec.load_arch(path.stem) is not None")
     assert not mods & FORBIDDEN
     assert "repro_torch" not in mods
 

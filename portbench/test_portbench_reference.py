@@ -39,9 +39,10 @@ def test_reference_matches_the_port(name):
 
 def test_other_seed_other_weights_same_seed_same_weights():
     arch = small("granite-3-8b")
-    a = weights.group(arch, 7, 3, 0, 1, "cpu")
-    b = weights.group(arch, 7, 3, 0, 1, "cpu")
-    c = weights.group(arch, 8, 3, 0, 1, "cpu")
+    params = weights.layout(arch)
+    a = weights.group(arch, 7, 3, 0, 1, "cpu", params)
+    b = weights.group(arch, 7, 3, 0, 1, "cpu", params)
+    c = weights.group(arch, 8, 3, 0, 1, "cpu", params)
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["layers.0.attn.wq.w"], c["layers.0.attn.wq.w"])
     w = a["layers.0.mlp.wg.w"]

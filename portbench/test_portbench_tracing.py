@@ -7,6 +7,7 @@ or no trace, give none; and a traced CPU run at smoke size reports the
 MoE's share and slot use."""
 
 import json
+import time
 
 import pytest
 
@@ -84,12 +85,29 @@ def test_no_trace_or_no_spans_give_none(recorded):
         assert spec.load_reader(m)(slice_ctx([(0, 50)], [(10, 20)])) is None
 
 
-def test_traced_smoke_run_reports_the_moe_s_share_and_slot_use(tmp_path):
+class StepClock:
+    """The harness's clock for one test: each reading is ``step`` seconds
+    after the last, so the window and its profiled slice hold the same
+    batches however loaded the machine is. Everything else is ``time``'s."""
+
+    def __init__(self, step: float):
+        self.step, self.now = step, 0.0
+
+    def perf_counter(self) -> float:
+        self.now += self.step
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_traced_smoke_run_reports_the_moe_s_share_and_slot_use(tmp_path, monkeypatch):
     from portbench import harness, smoke
 
-    # 1-s segments at 3 req/s take well under a tenth of a second each on an
-    # idle CPU, so the 1.8-s slice of a 6-s window holds whole segments, each
-    # ending in a granite-moe batch, even on a loaded one
+    # 1-s segments at 3 req/s; at 50 ms a reading of the harness's clock the
+    # 1.8-s slice of a 6-s window holds whole segments, each ending in a
+    # granite-moe batch, whatever the machine's load
+    monkeypatch.setattr(harness, "time", StepClock(0.05))
     root = smoke.make_root(tmp_path, "serve3.steady240", limit=0.05, rate=3.0)
     mix = root / "portbench" / "traffic" / "steady_high.240.json"
     mix.write_text(json.dumps({**json.loads(mix.read_text()), "segment_s": 1}))

@@ -2,8 +2,9 @@
 
 The benchmark makes the weights and hands the same values to the program
 (copied into its parameters by name) and to the plain reference (made again,
-group by group, from the same seed). ``layout`` is the port's parameter layout
-for an architecture (names, shapes and dtypes in its order), frozen here; the
+group by group, from the same seed). An architecture's parameter layout
+(names, shapes and dtypes in the port's order) is frozen in its reference
+module, ``portbench/archs/<module>.py`` (``spec.reference_module``); the
 harness refuses to run if the program's parameters differ from it.
 
 Each group (the embeddings, one layer, the final norm and head) is one
@@ -14,9 +15,12 @@ scaled by its kind: tables ``.e`` 0.02, gains ``.g`` 1 + 0.1 n, biases ``.b``
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import torch
 
-WHISPER_POSITIONS = 4096  # the whisper decoder's learned position table
+from portbench import spec
+
 MASK64 = (1 << 64) - 1
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -27,11 +31,9 @@ def phys_experts(n: int) -> int:
     return n if n < 16 else 16 * -(-n // 16)
 
 
-def supported(arch: dict) -> bool:
-    """Whether the plain reference covers the architecture."""
-    if arch["family"] in ("dense", "vlm", "moe"):
-        return arch.get("moe_every", 0) <= 1 and arch.get("window") is None
-    return arch["family"] == "audio"
+def supported(arch: dict, config: dict | None = None, root: Path = spec.ROOT) -> bool:
+    """Whether a plain reference covers the architecture."""
+    return spec.reference_module(arch, config, root) is not None
 
 
 def _norm(prefix: str, d: int, layernorm: bool, dt):
@@ -63,45 +65,10 @@ def _mlp(prefix: str, d: int, f: int, kind: str, dt):
     return _linear(f"{prefix}.w1", d, f, True, dt) + _linear(f"{prefix}.w2", f, d, True, dt)
 
 
-def layout(arch: dict) -> list[tuple[str, tuple, torch.dtype]]:
+def layout(arch: dict, config: dict | None = None,
+           root: Path = spec.ROOT) -> list[tuple[str, tuple, torch.dtype]]:
     """(name, shape, dtype) of every parameter, in the port's order."""
-    if not supported(arch):
-        raise ValueError(f"no weight layout for {arch['name']} ({arch['family']})")
-    dt = DTYPES[arch["dtype"]]
-    d, h, kv, f, v = (arch[k] for k in ("d_model", "n_heads", "n_kv", "d_ff", "vocab"))
-    hd = d // h
-    out = [("embed.e", (v, d), dt)]
-    if arch["family"] == "audio":
-        out.append(("pos.e", (WHISPER_POSITIONS, d), dt))
-        for i in range(arch["n_layers"]):
-            p = f"layers.{i}"
-            out += _norm(f"{p}.ln_self", d, True, dt)
-            out += _attention(f"{p}.self_attn", d, h, h, hd, True, dt)
-            out += _norm(f"{p}.ln_cross", d, True, dt)
-            out += _attention(f"{p}.cross_attn", d, h, h, hd, True, dt)
-            out += _norm(f"{p}.ln_mlp", d, True, dt)
-            out += _mlp(f"{p}.mlp", d, f, "gelu", dt)
-        return out + _norm("ln_f", d, True, dt) + [("lm_head.w", (d, v), dt)]
-    ln = arch["norm"] == "layernorm"
-    for i in range(arch["n_layers"]):
-        p = f"layers.{i}"
-        out += _norm(f"{p}.ln_attn", d, ln, dt)
-        out += _attention(f"{p}.attn", d, h, kv, hd, ln, dt)
-        out += _norm(f"{p}.ln_mlp", d, ln, dt)
-        if arch["n_experts"]:
-            e = phys_experts(arch["n_experts"])
-            out += [
-                (f"{p}.moe.experts.wg", (e, d, f), dt),
-                (f"{p}.moe.experts.wu", (e, d, f), dt),
-                (f"{p}.moe.experts.wd", (e, f, d), dt),
-                (f"{p}.moe.router.w", (d, arch["n_experts"]), torch.float32),
-            ]
-        else:
-            out += _mlp(f"{p}.mlp", d, f, arch["mlp_kind"], dt)
-    out += _norm("ln_f", d, ln, dt) + [("lm_head.w", (d, v), dt)]
-    if arch["family"] == "vlm":
-        out.append(("vis_proj.w", (d, d), dt))
-    return out
+    return spec.reference_for(arch, config, root).layout(arch)
 
 
 def group_of(name: str, n_layers: int) -> int:
@@ -140,9 +107,9 @@ def _init(name: str, x: torch.Tensor) -> torch.Tensor:
     return x.mul_(x.shape[-2] ** -0.5)
 
 
-def group(arch: dict, seed: int, stage: int, variant: int, index: int, device):
-    """{name: tensor} of one group, in the dtypes ``layout`` gives."""
-    items = [it for it in layout(arch) if group_of(it[0], arch["n_layers"]) == index]
+def group(arch: dict, seed: int, stage: int, variant: int, index: int, device, params):
+    """{name: tensor} of one group, in the dtypes the layout ``params`` gives."""
+    items = [it for it in params if group_of(it[0], arch["n_layers"]) == index]
     numel = [int(torch.Size(shape).numel()) for _, shape, _ in items]
     gen = torch.Generator(device=device)
     gen.manual_seed(key(seed, stage, variant, index))
@@ -154,11 +121,12 @@ def group(arch: dict, seed: int, stage: int, variant: int, index: int, device):
     return out
 
 
-def fill(model: torch.nn.Module, arch: dict, seed: int, stage: int, variant: int):
+def fill(model: torch.nn.Module, arch: dict, seed: int, stage: int, variant: int,
+         config: dict | None = None, root: Path = spec.ROOT):
     """Copy the benchmark's weights into the program's ``model``, after
     checking that its parameters are ``layout``'s."""
     params = dict(model.named_parameters())
-    want = layout(arch)
+    want = layout(arch, config, root)
     have = [(n, tuple(p.shape), p.dtype) for n, p in params.items()]
     if have != [(n, tuple(s), dt) for n, s, dt in want]:
         diff = sorted(set(have) ^ {(n, tuple(s), dt) for n, s, dt in want})[:6]
@@ -167,5 +135,5 @@ def fill(model: torch.nn.Module, arch: dict, seed: int, stage: int, variant: int
     device = next(iter(params.values())).device
     with torch.no_grad():
         for index in range(arch["n_layers"] + 2):
-            for name, value in group(arch, seed, stage, variant, index, device).items():
+            for name, value in group(arch, seed, stage, variant, index, device, want).items():
                 params[name].copy_(value)
