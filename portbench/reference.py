@@ -10,7 +10,9 @@ RMSNorm (eps 1e-6) and LayerNorm (eps 1e-5), half-split RoPE, grouped-query
 attention, the SwiGLU and tanh-GELU MLPs, and a top-k MoE whose router is
 float32, its top-k gates renormalised, each expert taking at most
 C = int(1.25 * S * k / E) tokens of a row, the highest gates first, ties to the
-earlier token. The stub frontends' inputs are made as the port's
+earlier token; and a Mamba2 mixer (``_mamba2``) under the port's
+parameter names, its state-space recurrence run position by position with no
+chunks. The stub frontends' inputs are made as the port's
 ``StageServer`` makes them: f32 normal, std 0.02, from a generator seeded 0
 (patches) or 1 (frames), at the batch's own size, then rounded to the
 weights' dtype.
@@ -141,6 +143,63 @@ def _moe(p, prefix, x, arch):
             h = F.silu(_mm(xe, wg[e], p)) * _mm(xe, wu[e], p)
             y.index_put_((b, s), _mm(h, wd[e], p) * gates[b, s, e][:, None], accumulate=True)
     return y
+
+
+MAMBA_CONV = 4  # a Mamba2 mixer's causal depthwise conv width
+
+
+def _gated_norm(p, prefix, y, z, groups: int, eps: float, gate_first: bool):
+    """The RMSNorm of ``y`` gated by SiLU(z), over each group's channels:
+    ``gate_first`` normalises y * SiLU(z) (published Mamba2,
+    ``norm_before_gate=False``), else normalises y and then multiplies by
+    SiLU(z) (the port's form)."""
+    if gate_first:
+        y = y * F.silu(z)
+    v = y.unflatten(-1, (groups, -1))
+    v = (v * torch.rsqrt(v.pow(2).mean(-1, keepdim=True) + eps)).flatten(-2)
+    v = v * p[f"{prefix}.norm.g"]
+    return v if gate_first else v * F.silu(z)
+
+
+def _ssd(x, dt, a, b, c, d_skip):
+    """The state-space recurrence, one position after another: x [B, S, H,
+    P], dt [B, S, H] (after softplus), a [H] (negative), b and c [B, S, H, N]
+    (each head's group's), d_skip [H] -> y [B, S, H, P]; per head
+    H_t = exp(dt_t a) H_{t-1} + dt_t x_t b_t^T and y_t = H_t c_t + D x_t."""
+    Bsz, S, H, P = x.shape
+    state = torch.zeros(Bsz, H, P, b.shape[-1], dtype=x.dtype, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dt[:, t] * a)[..., None, None]
+        state = decay * state + (dt[:, t, :, None] * x[:, t])[..., None] * b[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, c[:, t]))
+    return torch.stack(ys, dim=1) + d_skip[:, None] * x
+
+
+def _mamba2(p, prefix, x, *, heads: int, d_state: int, eps: float, groups: int = 1,
+            gate_first: bool = True):
+    """A Mamba2 mixer, x [B, S, d] -> [B, S, d]: the projections ``in_z``,
+    ``in_x``, ``in_bc`` (B then C, ``groups`` x ``d_state`` each) and ``in_dt``;
+    a causal depthwise conv of width 4 over [x, B, C] (``conv_w`` [4, C],
+    whose last row multiplies the current position; ``conv_b``) and SiLU;
+    dt = softplus(dt + ``dt_bias``), A = -exp(``a_log``); the recurrence
+    (``_ssd``; heads share B and C within a group) with the skip ``d_skip``;
+    the gated RMSNorm (``_gated_norm``, per group) and ``out_proj``."""
+    Bsz, S, _ = x.shape
+    z = _lin(p, f"{prefix}.in_z", x)
+    u = torch.cat([_lin(p, f"{prefix}.in_x", x), _lin(p, f"{prefix}.in_bc", x)], dim=-1)
+    dt = _lin(p, f"{prefix}.in_dt", x)
+    w = p[f"{prefix}.conv_w"]
+    u = F.pad(u, (0, 0, MAMBA_CONV - 1, 0))
+    u = F.silu(sum(u[:, i:i + S] * w[i] for i in range(MAMBA_CONV)) + p[f"{prefix}.conv_b"])
+    xs, bm, cm = torch.split(u, [z.shape[-1], groups * d_state, groups * d_state], dim=-1)
+    dt = F.softplus(dt + p[f"{prefix}.dt_bias"])
+    a = -torch.exp(p[f"{prefix}.a_log"])
+    bm, cm = (m.view(Bsz, S, groups, d_state).repeat_interleave(heads // groups, dim=2)
+              for m in (bm, cm))
+    y = _ssd(xs.view(Bsz, S, heads, -1), dt, a, bm, cm, p[f"{prefix}.d_skip"])
+    y = _gated_norm(p, prefix, y.reshape(Bsz, S, -1), z, groups, eps, gate_first)
+    return _lin(p, f"{prefix}.out_proj", y)
 
 
 def stub_inputs(batch: int, rows, shape, seed: int, device, dtype):

@@ -12,11 +12,19 @@ import pytest
 from portbench import harness, smoke, spec
 
 
-@pytest.mark.parametrize("workload", ["edge4.steady120", "serve3.steady240"])
+# the smoke cells serve a tenth of the mix's rate, but where the variant a cell
+# is for is chosen only at its full rate (edge4.steady240: llava-next)
+VARIANT_AT_FULL_RATE = {"edge4.steady240": "llava-next-mistral-7b"}
+
+
+@pytest.mark.parametrize("workload", ["edge4.steady120", "serve3.steady240", "edge4.steady240"])
 def test_control_fails_the_cells_limits(tmp_path, workload):
     bench = spec.load_benchmark()
-    limits = spec.load_config(bench, spec.find_cell(bench, workload)["config"])["limits"]
-    root = smoke.make_root(tmp_path, workload, dtype="bfloat16")
+    cell_entry = spec.find_cell(bench, workload)
+    limits = spec.load_config(bench, cell_entry["config"])["limits"]
+    rate = (float(spec.load_traffic(cell_entry["traffic"])["rate"]) if workload in VARIANT_AT_FULL_RATE
+            else None)
+    root = smoke.make_root(tmp_path, workload, dtype="bfloat16", rate=rate)
     cell = harness.Cell(workload, root=root, device="cpu", log=lambda msg: None)
     cell.config["limits"] = limits
     window = cell.run(2**31 + 17, 0.0)  # one segment: the sample is fixed by the seed
@@ -28,3 +36,6 @@ def test_control_fails_the_cells_limits(tmp_path, workload):
     assert not harness.passes(details["control_checks"]), details["control_checks"]
     for a in ("whisper-small", "starcoder2-3b"):
         assert program[a] < limits[a], (a, program[a])
+    if workload in VARIANT_AT_FULL_RATE:
+        a = VARIANT_AT_FULL_RATE[workload]
+        assert program[a] < limits[a] < control[a], (a, program[a], control[a])

@@ -11,10 +11,19 @@ Each group (the embeddings, one layer, the final norm and head) is one
 ``torch.randn`` on a generator seeded from (seed, stage, variant, group),
 scaled by its kind: tables ``.e`` 0.02, gains ``.g`` 1 + 0.1 n, biases ``.b``
 0.02 n, every matrix 1/sqrt(fan_in) (lecun-normal, as the port initialises).
+A state-space layer's 1-D parameters take rules keyed on the last part of
+their name, the port's Mamba2 names, with u = Phi(n) where a rule needs a
+uniform draw: ``a_log`` log(1 + 15 u), so A = -exp(a_log) lies in [-16, -1]
+(Mamba2's published ``A_init_range``); ``dt_bias`` the inverse softplus of
+dt = exp(ln 1e-3 + u (ln 1e-1 - ln 1e-3)), floored at 1e-4 (Mamba2's
+published init); ``d_skip`` 1 + 0.1 n (published 1; the spread makes every
+head's skip term count); ``conv_b`` 0.02 n, as every bias. Any other
+parameter under two dimensions is refused by name.
 """
 
 from __future__ import annotations
 
+import math
 from pathlib import Path
 
 import torch
@@ -97,6 +106,26 @@ def key(seed: int, *parts: int) -> int:
     return x >> 1
 
 
+def _uniform(n: torch.Tensor) -> torch.Tensor:
+    """Phi(n): a standard normal draw made uniform on (0, 1)."""
+    return n.div_(math.sqrt(2.0)).erf_().add_(1.0).mul_(0.5)
+
+
+def _dt_bias(n: torch.Tensor) -> torch.Tensor:
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt = _uniform(n).mul_(hi - lo).add_(lo).exp_().clamp_(min=1e-4)
+    return dt + torch.log(-torch.expm1(-dt))  # softplus(dt_bias) = dt
+
+
+# 1-D parameters of a state-space layer, by the last part of their name
+STATE_SPACE = {
+    "a_log": lambda n: _uniform(n).mul_(15.0).log1p_(),
+    "dt_bias": _dt_bias,
+    "d_skip": lambda n: n.mul_(0.1).add_(1.0),
+    "conv_b": lambda n: n.mul_(0.02),
+}
+
+
 def _init(name: str, x: torch.Tensor) -> torch.Tensor:
     if name.endswith(".e"):
         return x.mul_(0.02)
@@ -104,6 +133,11 @@ def _init(name: str, x: torch.Tensor) -> torch.Tensor:
         return x.mul_(0.1).add_(1.0)
     if name.endswith(".b"):
         return x.mul_(0.02)
+    rule = STATE_SPACE.get(name.rsplit(".", 1)[-1])
+    if rule is not None:
+        return rule(x)
+    if x.dim() < 2:
+        raise ValueError(f"{name}: no rule makes a parameter of shape {tuple(x.shape)}")
     return x.mul_(x.shape[-2] ** -0.5)
 
 
